@@ -2,22 +2,33 @@
 """On-card smoke run of the PyTorch port (oryon_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
-    python3 chip_smoke.py --kernels  # device, build, K1 and K2 phases only
+    python3 chip_smoke.py --kernels  # device, build and the kernel phases only
     python3 chip_smoke.py --profile DIR  # + one profiled batch, tables in DIR
 
 Phases, each printing one line with its result and its time:
   1. device    the card (torch and nvidia-smi); fails without CUDA
   2. build     nvcc builds the kernels from oryon_tpu_torch/csrc/
   3. k1        fused attention kernel vs its plain version, ViT-L shape
-  4. k2        masked-argmin kernel vs its plain version, serving shape
-  5. register  Kabsch, RANSAC, PointDSC and ICP recover a known rigid
+  4. k1i8      the same with int8 logits, at the padded ViT-L shape
+  5. k5        flash attention on [B, H, L, D] with segment ids
+  6. k3, k4    Swin window attention, packed windows and map-level, at both
+               Swin-B stages with a shifted-window mask in the bias
+  7. k2        masked-argmin kernel vs its plain version, serving shape
+  8. register  Kabsch, RANSAC, PointDSC and ICP recover a known rigid
                transform in full f32 (catches TF32 in the pose math)
-  6. serve     full_oryon(quant="int8") + PointDSC + ICP behind
+  9. serve     full_oryon(quant="int8") + PointDSC + ICP behind
                OryonPredictor at B=8 answers 12 requests; launch counters
-               show the main path went through both kernels
-Then one JSON line of per-kernel results, the nvidia-smi name/power line,
-and last the result line {"ok": true, "device": {...}}.  Any failure exits
-non-zero before the result line.  Weights and inputs are random, from seeds.
+               show the main path went through K1 and K2
+ 10. serve_optin  the same predictor switched to (fused_i8qk, Swin band) and
+               to (flash, Swin pallas): one counted batch of 8 each, through
+               K1-i8 + K4 and K5 + K3
+Every kernel phase holds the kernel against its plain PyTorch version on the
+same inputs and times kernel, plain version and, where one PyTorch call
+computes the same function, that call (a yardstick only: the port never calls
+it).  Then one JSON line of per-kernel results, the nvidia-smi name/power
+line, and last the result line {"ok": true, "device": {...}}.  Any failure
+exits non-zero before the result line.  Weights and inputs are random, from
+seeds.
 """
 from __future__ import annotations
 
@@ -31,10 +42,18 @@ import numpy as np
 
 K1_SHAPE = (16, 577, 3 * 1024)    # 2B images x (CLS + 24^2 tokens) x 3C, ViT-L
 K1_HEADS, K1_REAL = 16, 560       # keys >= K1_REAL carry the -1e9 pad mask
+K1_PADDED = 640                   # the tower pads 577 -> 640 for fused_i8qk and flash
 K2_PAIRS, K2_SRC, K2_TGT = 8, 5120, 192 * 192
+# Swin-B on 16 images at 384^2: (padded map side, channels, heads) per stage
+SWIN_STAGES = ((98, 128, 4), (49, 256, 8))
+SWIN_IMAGES, SWIN_WINDOW = 16, 7
+KERNEL_TOL = 2e-2                 # bf16 outputs: about one ulp at |x| in [2, 4)
+# published dense peaks of one H100 SXM: bytes/s of HBM3, operations/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 ROT_TOL, TRANS_TOL = 1e-3, 1e-4   # registration: rad, m
 TIMED_LAUNCHES = 20               # per kernel timing run (K2 uses a quarter)
-TIMED_BATCHES = 5                 # warm B=8 batches timed for pairs/s
+TIMED_BATCHES = 3                 # warm B=8 batches timed for pairs/s
 DEVICE = "cuda"                   # the CPU rehearsal sets "cpu"
 
 
@@ -89,6 +108,51 @@ def alternate(kernel, plain, iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(n_bytes: float, ops: dict) -> dict:
+    """The least time the card could take: the larger of the bytes moved once
+    over the memory rate and the operations (by type) over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items()) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare(torch, got, ref, what: str) -> float:
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: kernel output not finite")
+    check(np.isfinite(err) and err < KERNEL_TOL,
+          f"{what}: max |kernel - plain| = {err} >= {KERNEL_TOL}")
+    return err
+
+
+def timed(kernel, plain, library, iters: int) -> dict:
+    ms, plain_ms = alternate(kernel, plain, iters)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "library_ms": None if library is None else cuda_ms(library, iters)}
+
+
+def times_txt(r: dict) -> str:
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+    return (f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {lib}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def sdpa_packed(torch, qkv, mask, heads):
+    """One library call for attention on packed [B, L, 3C] rows: strided head
+    views into scaled_dot_product_attention, additive mask broadcast."""
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    q, k, v = (t.reshape(B, L, heads, C // heads).transpose(1, 2)
+               for t in qkv.split(C, dim=-1))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return out.transpose(1, 2).reshape(B, L, C)
+
+
 @phase("device")
 def phase_device(torch):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -127,16 +191,180 @@ def phase_k1(torch, iters):
     scale = (C3 // 3 // K1_HEADS) ** -0.5
     got = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
     ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
-    torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs().max().item()
     # bf16 inputs/outputs with f32 (kernel) vs bf16-rounded (plain) logits
-    check(np.isfinite(err) and err < 2e-2, f"max |kernel - plain| = {err} >= 2e-2")
-    ms, plain_ms = alternate(lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale),
-                             lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
-                             iters)
-    return {"line": f"qkv {list(K1_SHAPE)} bf16, max abs err {err:.3e} (tol 2e-2), "
-                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-            "err": err, "ms": ms, "plain_ms": plain_ms}
+    res = {"err": compare(torch, got, ref, "K1")}
+    mask16 = kmask.to(torch.bfloat16)[None, None, None, :]
+    res.update(timed(lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale),
+                     lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
+                     lambda: sdpa_packed(torch, qkv, mask16, K1_HEADS), iters))
+    # two L x L x hd products per (image, head); keys behind the mask count,
+    # the function multiplies them too
+    res.update(bound(nbytes(qkv, kmask, got),
+                     {"bf16": 4 * B * K1_HEADS * L * L * (C3 // 3 // K1_HEADS)}))
+    res["line"] = (f"qkv {list(K1_SHAPE)} bf16, max abs err {res['err']:.3e} "
+                   f"(tol {KERNEL_TOL}), {times_txt(res)}")
+    return res
+
+
+@phase("k1i8")
+def phase_k1i8(torch, iters):
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    B, L, C3 = K1_SHAPE[0], K1_PADDED, K1_SHAPE[2]
+    hd = C3 // 3 // K1_HEADS
+    qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16)
+    kmask = torch.where(torch.arange(L, device=DEVICE) < K1_SHAPE[1], 0.0, -1e9)
+    scale = hd ** -0.5
+    got = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8=True)
+    ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale, qk_int8=True)
+    # same int8 codes and int32 sums on both sides (round half to even), so
+    # what differs is K1's: bf16 exponentials and the deferred normalisation
+    res = {"err": compare(torch, got, ref, "K1-i8")}
+    # how far the int8 logits move the output from the unquantised attention
+    exact = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
+    quant_err = (ref.float() - exact.float()).abs().max().item()
+    res.update(timed(
+        lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8=True),
+        lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale, qk_int8=True),
+        None, iters))   # no PyTorch call forms logits from per-head int8 codes
+    mask16 = kmask.to(torch.bfloat16)[None, None, None, :]
+    res["sdpa_ms"] = cuda_ms(lambda: sdpa_packed(torch, qkv, mask16, K1_HEADS), iters)
+    res.update(bound(nbytes(qkv, kmask, got),
+                     {"int8": 2 * B * K1_HEADS * L * L * hd,
+                      "bf16": 2 * B * K1_HEADS * L * L * hd}))
+    res["line"] = (f"qkv {[B, L, C3]} bf16, max abs err {res['err']:.3e} (tol "
+                   f"{KERNEL_TOL}), int8 vs unquantised plain {quant_err:.3e}, "
+                   f"{times_txt(res)}; unquantised SDPA {res['sdpa_ms']:.3f} ms")
+    return res
+
+
+@phase("k5")
+def phase_k5(torch, iters):
+    from oryon_tpu_torch.ops.cuda import flash
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    B, H, L, real = K1_SHAPE[0], K1_HEADS, K1_PADDED, K1_SHAPE[1]
+    D = K1_SHAPE[2] // 3 // H
+    q, k, v = (torch.randn((B, H, L, D), generator=g, device=DEVICE).to(torch.bfloat16)
+               for _ in range(3))
+    seg = (torch.arange(L, device=DEVICE) < real).to(torch.int32).expand(B, L).contiguous()
+    scale = D ** -0.5
+    got = flash.flash_mha_padded(q, k, v, scale, seg)
+    ref = flash.flash_mha_plain(q, k, v, scale, seg)
+    res = {"err": compare(torch, got, ref, "K5 with segments")}
+    # without segments, at the ragged unpadded length
+    qr, kr, vr = (t[:, :, :real].contiguous() for t in (q, k, v))
+    ragged = compare(torch, flash.flash_mha(qr, kr, vr, scale),
+                     flash.flash_mha_plain(qr, kr, vr, scale), f"K5 at L={real}")
+    same = (seg[:, :, None] == seg[:, None, :])[:, None]
+    res.update(timed(lambda: flash.flash_mha_padded(q, k, v, scale, seg),
+                     lambda: flash.flash_mha_plain(q, k, v, scale, seg),
+                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same),
+                     iters))
+    # only pairs of one segment are multiplied: real x real + padding x padding
+    pairs = real * real + (L - real) * (L - real)
+    res.update(bound(nbytes(q, k, v, seg, got), {"bf16": 4 * B * H * pairs * D}))
+    res["line"] = (f"q, k, v {[B, H, L, D]} bf16, {real} real tokens: max abs err "
+                   f"{res['err']:.3e}, unsegmented L={real} {ragged:.3e} (tol "
+                   f"{KERNEL_TOL}), {times_txt(res)}")
+    return res
+
+
+def _swin_case(torch, g, side, C, heads, shifted: bool):
+    """Window-attention inputs of one Swin-B stage: the qkv map of 16 images
+    and the combined bias (relative-position bias + shift mask)."""
+    from oryon_tpu_torch.models.swin import shift_attention_mask
+    w = SWIN_WINDOW
+    N, nw = w * w, (side // w) ** 2
+    qkv_map = torch.randn((SWIN_IMAGES, side, side, 3 * C), generator=g,
+                          device=DEVICE).to(torch.bfloat16)
+    bias = 0.5 * torch.randn((1, heads, N, N), generator=g, device=DEVICE)
+    bias = bias.expand(nw, heads, N, N)
+    if shifted:
+        mask = torch.from_numpy(shift_attention_mask(side, side, w, w // 2)).to(DEVICE)
+        bias = bias + mask[:, None]
+    return qkv_map, bias.contiguous()
+
+
+def _sdpa_windows(torch, q, k, v, mask16, heads):
+    """One library call for window attention on [Bw, N, C] rows."""
+    Bw, N, C = q.shape
+    q, k, v = (t.reshape(Bw, N, heads, C // heads).transpose(1, 2) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask16)
+    return out.transpose(1, 2).reshape(Bw, N, C)
+
+
+def _swin_phase(torch, iters, name, run_kernel, run_plain, prepare, run_library):
+    """K3 or K4 at both stages, unshifted (numerics) and shifted (numerics
+    and times).  ``prepare(qkv_map)`` gives the kernel's input tensors;
+    ``run_library(*inputs, mask16, heads)`` is the PyTorch yardstick."""
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    w = SWIN_WINDOW
+    N = w * w
+    stages, err = [], 0.0
+    for side, C, heads in SWIN_STAGES:
+        hd = C // heads
+        scale = hd ** -0.5
+        for shifted in (False, True):
+            qkv_map, bias = _swin_case(torch, g, side, C, heads, shifted)
+            inputs = prepare(qkv_map)
+            got = run_kernel(*inputs, bias, heads, scale)
+            ref = run_plain(*inputs, bias, heads, scale)
+            err = max(err, compare(torch, got, ref,
+                                   f"{name} {side}x{side}x{C} shifted={shifted}"))
+        Bw = SWIN_IMAGES * (side // w) ** 2
+        mask16 = bias.to(torch.bfloat16).repeat(SWIN_IMAGES, 1, 1, 1)
+        r = timed(lambda: run_kernel(*inputs, bias, heads, scale),
+                  lambda: run_plain(*inputs, bias, heads, scale),
+                  lambda: run_library(*inputs, mask16, heads), iters)
+        # per window and head two N x N x hd products; the bias once
+        r.update(bound(nbytes(*inputs, bias, got),
+                       {"bf16": 4 * Bw * heads * N * N * hd}))
+        stages.append(r)
+        del mask16
+    res = {k: sum(r[k] for r in stages) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    res.update(err=err, bound_by=stages[0]["bound_by"], stages=stages)
+    res["line"] = (f"16 images, shifted windows: max abs err {err:.3e} (tol {KERNEL_TOL}); "
+                   + "; ".join(f"stage {i + 1} [{side}x{side}, C={C}, {heads} heads] "
+                               f"{times_txt(r)}"
+                               for i, (r, (side, C, heads)) in enumerate(zip(stages, SWIN_STAGES)))
+                   + "; both stages: " + times_txt(res))
+    return res
+
+
+@phase("k3")
+def phase_k3(torch, iters):
+    from oryon_tpu_torch.models.swin import window_partition
+    from oryon_tpu_torch.ops.cuda import swin_attn
+
+    def prepare(qkv_map):
+        wins = window_partition(qkv_map, SWIN_WINDOW)
+        return tuple(t.contiguous() for t in wins.chunk(3, dim=-1))
+
+    def library(q, k, v, mask16, heads):
+        return _sdpa_windows(torch, q, k, v, mask16, heads)
+    return _swin_phase(torch, iters, "K3", swin_attn.packed_window_attention,
+                       swin_attn.packed_window_attention_plain, prepare, library)
+
+
+@phase("k4")
+def phase_k4(torch, iters):
+    from oryon_tpu_torch.models.swin import window_partition, window_reverse
+    from oryon_tpu_torch.ops.cuda import swin_attn
+
+    def kernel(qkv_map, bias, heads, scale):
+        return swin_attn.band_window_attention(qkv_map, bias, heads, SWIN_WINDOW, scale)
+
+    def plain(qkv_map, bias, heads, scale):
+        return swin_attn.band_window_attention_plain(qkv_map, bias, heads, SWIN_WINDOW, scale)
+
+    def library(qkv_map, mask16, heads):
+        # partition, one attention call, reverse: together the same function
+        B, side = qkv_map.shape[:2]
+        q, k, v = window_partition(qkv_map, SWIN_WINDOW).chunk(3, dim=-1)
+        out = _sdpa_windows(torch, q, k, v, mask16, heads)
+        return window_reverse(out, SWIN_WINDOW, B, side, side)
+    return _swin_phase(torch, iters, "K4", kernel, plain, lambda m: (m,), library)
 
 
 @phase("k2")
@@ -171,13 +399,18 @@ def phase_k2(torch, iters):
         else:
             out["bf16_same"] = same.float().mean().item()
             check(out["bf16_same"] >= 0.99, f"bf16 argmins agree {out['bf16_same']:.4f} < 0.99")
-    ms, plain_ms = alternate(lambda: mk.masked_argmin(src, tgt, bad, "bf16"),
-                             lambda: mk.masked_argmin_plain(src, tgt, bad, "bf16"),
-                             max(iters // 4, 3))
-    out.update(ms=ms, plain_ms=plain_ms, line=(
+    # no single PyTorch call computes a masked cosine argmin
+    out.update(timed(lambda: mk.masked_argmin(src, tgt, bad, "bf16"),
+                     lambda: mk.masked_argmin_plain(src, tgt, bad, "bf16"),
+                     None, max(iters // 4, 3)))
+    # one product of 32 per source and non-excluded target, on bf16-rounded
+    # inputs (the mode timed), so counted at the bf16 rate
+    kept = int((~bad).sum().item())
+    out.update(bound(nbytes(src, tgt, bad, md, am), {"bf16": 2 * K2_SRC * kept * 32}))
+    out["line"] = (
         f"{K2_PAIRS} x [{K2_SRC}, 32] x [{K2_TGT}, 32], 40% excluded: fp32 min err "
         f"{out['err']:.2e}, argmins same {out['fp32_same']:.6f} (fp32) / "
-        f"{out['bf16_same']:.6f} (bf16); bf16 kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"))
+        f"{out['bf16_same']:.6f} (bf16); bf16 mode: {times_txt(out)}")
     return out
 
 
@@ -283,13 +516,79 @@ def _profile(torch, fn, out_dir: str) -> str:
             f"{window / 1e3:.1f} ms ({busy / window:.1%}), tables in {out_dir}")
 
 
+def _counted(torch, fn):
+    """Run fn() with every kernel's launch count set to 0 just before and
+    read just after: (fn's result, {kernel: launches})."""
+    from oryon_tpu_torch.ops.cuda import flash, match_kernel, mha_lanes, swin_attn
+    counters = {"k1": (mha_lanes, "launches"), "k1i8": (mha_lanes, "launches_i8"),
+                "k2": (match_kernel, "launches"), "k3": (swin_attn, "launches_packed"),
+                "k4": (swin_attn, "launches_band"), "k5": (flash, "launches")}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {key: getattr(mod, attr) for key, (mod, attr) in counters.items()}
+
+
+def _check_results(results, reqs):
+    """Every request answered with a finite rigid pose; returns detections."""
+    check(len(results) == len(reqs), f"{len(results)} results for {len(reqs)} requests")
+    n_det = 0
+    for r, q in zip(results, reqs):
+        T = np.asarray(r["pose"], np.float64)
+        check(T.shape == (4, 4) and np.isfinite(T).all(), f"pose not finite: {T}")
+        det = np.linalg.det(T[:3, :3])
+        check(abs(det - 1.0) < 1e-3, f"det(R) = {det}")
+        check(np.allclose(T[3], [0, 0, 0, 1]), f"last row {T[3]}")
+        check(isinstance(r["n_corrs"], int) and 0 <= r["n_corrs"] <= 500,
+              f"n_corrs {r['n_corrs']!r}")
+        check(isinstance(r["detection_valid"], bool), "detection_valid not a bool")
+        check(r["prompt"] == q["prompt"], "prompt order")
+        n_det += r["detection_valid"]
+    return n_det
+
+
+def _warm_times(torch, pred, batch8, timing_batches):
+    """(seconds per warm batch, stage times as text) of pred.predict(batch8)."""
+    pred.predict(batch8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timing_batches):
+        pred.predict(batch8)
+    torch.cuda.synchronize()
+    warm_s = (time.perf_counter() - t0) / timing_batches
+    events: list = []
+    pred.predict(batch8, stage_events=events)
+    torch.cuda.synchronize()
+    stages = {n1: e0.elapsed_time(e1) for (_, e0), (n1, e1) in zip(events, events[1:])}
+    return warm_s, ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
+
+
+def _set_attn(model, clip_impl: str, swin_impl: str) -> None:
+    """Switch the built towers to another attention configuration; the
+    kernels add no parameters, so the weights stay as they are."""
+    import dataclasses
+    tower = model.vlm_visual
+    tower.cfg = dataclasses.replace(tower.cfg, attn_impl=clip_impl)
+    for blk in tower.resblocks:
+        blk.attn.attn_impl = clip_impl
+    for name, mod in model.guidance.named_modules():
+        if name.endswith(".attn"):
+            mod.attn_impl = swin_impl
+
+
+def _min_cosine(torch, a, b) -> float:
+    cos = torch.nn.functional.cosine_similarity
+    return min(cos(x.float().flatten(1), y.float().flatten(1)).min().item()
+               for x, y in zip(a, b))
+
+
 @phase("serve")
 def phase_serve(torch, timing_batches, profile_dir=None):
     from oryon_tpu_torch.infer import OryonPredictor
     from oryon_tpu_torch.models.layers import random_init_
     from oryon_tpu_torch.models.oryon import full_oryon
     from oryon_tpu_torch.models.pointdsc import PointDSC
-    from oryon_tpu_torch.ops.cuda import match_kernel, mha_lanes
 
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
@@ -304,31 +603,14 @@ def phase_serve(torch, timing_batches, profile_dir=None):
     reqs = _requests(rs, 12, ["mug", "laptop"])
 
     # the main path, counted: 12 requests = 2 batches of 8 (the second padded)
-    mha_lanes.launches = 0
-    match_kernel.launches = 0
     t0 = time.perf_counter()
-    results = pred.predict(reqs)
-    torch.cuda.synchronize()
+    results, counts = _counted(torch, lambda: pred.predict(reqs))
     cold_s = time.perf_counter() - t0
-    counts = {"k1": mha_lanes.launches, "k2": match_kernel.launches}
     n_batches = 2
     check(counts["k1"] == layers * n_batches,
           f"K1 ran {counts['k1']} times, expected {layers} per tower forward x {n_batches}")
     check(counts["k2"] == n_batches, f"K2 ran {counts['k2']} times, expected {n_batches}")
-
-    check(len(results) == 12, f"{len(results)} results for 12 requests")
-    n_det = 0
-    for r, q in zip(results, reqs):
-        T = np.asarray(r["pose"], np.float64)
-        check(T.shape == (4, 4) and np.isfinite(T).all(), f"pose not finite: {T}")
-        det = np.linalg.det(T[:3, :3])
-        check(abs(det - 1.0) < 1e-3, f"det(R) = {det}")
-        check(np.allclose(T[3], [0, 0, 0, 1]), f"last row {T[3]}")
-        check(isinstance(r["n_corrs"], int) and 0 <= r["n_corrs"] <= 500,
-              f"n_corrs {r['n_corrs']!r}")
-        check(isinstance(r["detection_valid"], bool), "detection_valid not a bool")
-        check(r["prompt"] == q["prompt"], "prompt order")
-        n_det += r["detection_valid"]
+    n_det = _check_results(results, reqs)
 
     # the vision tower through K1 against the same tower on plain attention
     with torch.inference_mode():
@@ -345,31 +627,73 @@ def phase_serve(torch, timing_batches, profile_dir=None):
 
     # warm throughput at B=8 and the time of each stage (CUDA events)
     batch8 = reqs[:8]
-    pred.predict(batch8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timing_batches):
-        pred.predict(batch8)
-    torch.cuda.synchronize()
-    warm_s = (time.perf_counter() - t0) / timing_batches
-    events: list = []
-    pred.predict(batch8, stage_events=events)
-    torch.cuda.synchronize()
-    stages = {n1: e0.elapsed_time(e1) for (_, e0), (n1, e1) in zip(events, events[1:])}
-    stage_txt = ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
+    warm_s, stage_txt = _warm_times(torch, pred, batch8, timing_batches)
     if profile_dir:
         stage_txt += "; " + _profile(torch, lambda: pred.predict(batch8), profile_dir)
     return {"line": (f"build {build_s:.1f} s, first 12 requests {cold_s:.2f} s, "
                      f"{n_det}/12 detections, launches K1 {counts['k1']} K2 {counts['k2']}, "
                      f"tower cosine {cos:.6f}; warm B=8: {warm_s * 1e3:.1f} ms/batch = "
                      f"{8 / warm_s:.2f} pairs/s; stages: {stage_txt}"),
-            "counts": counts}
+            "state": ({k: counts[k] for k in ("k1", "k2")}, pred, reqs)}
+
+
+# (CLIP attn_impl, Swin attn_impl) -> the kernels one batch must go through:
+# the first once per CLIP layer (24), the second once per Swin block (4)
+OPTIN = ((("fused_i8qk", "band"), ("k1i8", "k4")),
+         (("flash", "pallas"), ("k5", "k3")))
+# min cosine of a tower's output against the same tower on einsum attention.
+# flash, pallas and band compute the same function as einsum up to bf16
+# rounding, and the default fused kernel leaves 1 - cos = 1.8e-4 on this
+# int8 tower (last-bit differences flip int8 activation codes).  fused_i8qk
+# adds about 1% quantisation noise to every logit by design, through 24
+# residual layers, so it is allowed ten times that distance: 0.998.
+COS_BOUND = {"fused_i8qk": 0.998, "flash": 0.999, "pallas": 0.999, "band": 0.999}
+
+
+@phase("serve_optin")
+def phase_serve_optin(torch, pred, reqs, timing_batches):
+    model = pred.model
+    batch8 = reqs[:8]
+    gen = torch.Generator().manual_seed(5)
+    size, sw = model.vision_cfg.image_size, model.swin_image_size
+    x_clip = torch.rand(4, size, size, 3, generator=gen).to(DEVICE)
+    x_swin = torch.randn(4, sw, sw, 3, generator=gen).to(DEVICE)
+    with torch.inference_mode():
+        _set_attn(model, "einsum", "einsum")
+        ref_clip, ref_swin = [model.vlm_visual(x_clip)], model.guidance(x_swin)
+    counts, lines = {}, []
+    for (clip_impl, swin_impl), (clip_key, swin_key) in OPTIN:
+        expected = {clip_key: model.vision_cfg.layers,
+                    swin_key: sum(model.swin_cfg.depths), "k2": 1}
+        _set_attn(model, clip_impl, swin_impl)
+        results, got = _counted(torch, lambda: pred.predict(batch8))
+        want = {key: expected.get(key, 0) for key in got}
+        check(got == want, f"({clip_impl}, {swin_impl}): launches {got}, expected {want}")
+        n_det = _check_results(results, batch8)
+        counts.update({k: got[k] for k in expected if k != "k2"})
+        with torch.inference_mode():
+            cos_clip = _min_cosine(torch, [model.vlm_visual(x_clip)], ref_clip)
+            cos_swin = _min_cosine(torch, model.guidance(x_swin), ref_swin)
+        check(cos_clip > COS_BOUND[clip_impl],
+              f"CLIP tower {clip_impl} vs einsum: min cosine {cos_clip:.6f} <= "
+              f"{COS_BOUND[clip_impl]}")
+        check(cos_swin > COS_BOUND[swin_impl],
+              f"Swin tower {swin_impl} vs einsum: min cosine {cos_swin:.6f} <= "
+              f"{COS_BOUND[swin_impl]}")
+        warm_s, stage_txt = _warm_times(torch, pred, batch8, timing_batches)
+        launches = ", ".join(f"{k} {v}" for k, v in got.items() if v)
+        lines.append(f"({clip_impl}, {swin_impl}): {n_det}/8 detections, launches {launches}, "
+                     f"cosine vs einsum CLIP {cos_clip:.6f} Swin {cos_swin:.6f}, warm B=8 "
+                     f"{warm_s * 1e3:.1f} ms/batch = {8 / warm_s:.2f} pairs/s; "
+                     f"stages: {stage_txt}")
+    _set_attn(model, "fused", "einsum")   # back to the serving default
+    return {"line": " | ".join(lines), "counts": counts}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="only the device, build, k1 and k2 phases")
+                    help="only the device, build and kernel phases")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one warm batch (torch.profiler) into DIR")
     args = ap.parse_args(argv)
@@ -381,24 +705,34 @@ def main(argv=None) -> int:
         return 1
     dev = phase_device(torch)
     phase_build()
-    k1 = phase_k1(torch, TIMED_LAUNCHES)
-    k2 = phase_k2(torch, TIMED_LAUNCHES)
+    measured = {
+        "k1": phase_k1(torch, TIMED_LAUNCHES),
+        "k1i8": phase_k1i8(torch, TIMED_LAUNCHES),
+        "k5": phase_k5(torch, TIMED_LAUNCHES),
+        "k3": phase_k3(torch, TIMED_LAUNCHES),
+        "k4": phase_k4(torch, TIMED_LAUNCHES),
+        "k2": phase_k2(torch, TIMED_LAUNCHES),
+    }
     if args.kernels:
         return 0
     phase_register(torch)
-    serve = phase_serve(torch, TIMED_BATCHES, args.profile)
-    kernels = [
-        {"name": "fused_mha_lanes_qkv", "route": "cuda",
-         "source": "oryon_tpu_torch/csrc/mha_lanes.cu",
-         "replaces": "oryon_tpu/ops/pallas/mha_lanes.py:121",
-         "launches": serve["counts"]["k1"], "max_abs_err": k1["err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "masked_argmin", "route": "cuda",
-         "source": "oryon_tpu_torch/csrc/match_kernel.cu",
-         "replaces": "oryon_tpu/ops/pallas/match_kernel.py:60",
-         "launches": serve["counts"]["k2"], "max_abs_err": k2["err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+    counts, pred, reqs = phase_serve(torch, TIMED_BATCHES, args.profile)["state"]
+    counts.update(phase_serve_optin(torch, pred, reqs, TIMED_BATCHES)["counts"])
+    table = [   # key, wrapper, source, TPU kernel it replaces
+        ("k1", "fused_mha_lanes_qkv", "mha_lanes.cu", "oryon_tpu/ops/pallas/mha_lanes.py:121"),
+        ("k1i8", "fused_mha_lanes_qkv(qk_int8=True)", "mha_lanes.cu",
+         "oryon_tpu/ops/pallas/mha_lanes.py:72"),
+        ("k2", "masked_argmin", "match_kernel.cu", "oryon_tpu/ops/pallas/match_kernel.py:60"),
+        ("k3", "packed_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:90"),
+        ("k4", "band_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:204"),
+        ("k5", "flash_mha_padded", "flash.cu", "oryon_tpu/ops/flash.py:84"),
     ]
+    kernels = [{"name": name, "route": "cuda", "source": f"oryon_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": counts[key],
+                "max_abs_err": measured[key]["err"],
+                **{k: measured[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}}
+               for key, name, src, replaces in table]
     print(json.dumps({"kernels": kernels}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

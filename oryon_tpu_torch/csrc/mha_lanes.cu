@@ -1,8 +1,9 @@
 // Fused multi-head attention on the lane-packed [B, L, 3C] in_proj output.
 //
 // Replaces: oryon_tpu/ops/pallas/mha_lanes.py::fused_mha_lanes_qkv (the
-// Pallas TPU kernel `_kernel`), the default attention of the CLIP vision
-// tower (ModelConfig.attn_impl="fused").
+// Pallas TPU kernel `_kernel`): with qk_int8=False the default attention of
+// the CLIP vision tower (ModelConfig.attn_impl="fused", kernel K1), with
+// qk_int8=True its int8-logit variant (attn_impl="fused_i8qk", kernel K1-i8).
 //
 // What bounds it on an H100: per (image, head) the work is 4*L*L*hd FLOPs
 // (two L x L x hd products) against 3*L*hd*2 bytes of q/k/v read once, so at
@@ -24,203 +25,87 @@
 // adds the rounded values; normalisation is deferred to the end.  L need not
 // be aligned: keys at or past L get -inf, query rows past L are not written.
 // The additive key mask (0 for real keys, -1e9 for padding) is applied in f32.
-// Simple first: no TMA, no wgmma, no double buffering (later work).
+// Simple first: no TMA, no wgmma, no double buffering (later work).  The
+// device code lives in attn_stream.cuh, shared with flash.cu.
+//
+// K1-i8: q * scale and k are quantised to int8 by the absmax of the whole
+// [L, hd] slab of one (image, head), but that head is spread over L / 64
+// query-tile blocks, so the maxima are taken by a small pre-pass kernel (one
+// block per (image, head)) into a [B, heads, 2] f32 scratch that the wrapper
+// allocates; it re-reads q and k once (2/3 of the input) from L2 or device
+// memory.  Each block of the main kernel then quantises its Q tile and every
+// K tile while copying them to shared memory (round half to even), runs
+// int8 x int8 -> int32 WMMA for the logits, and descales by qm * km / 127^2
+// in the softmax's first pass.  P V stays bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "attn_stream.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kWarps = 4;      // each warp owns 16 query rows
-constexpr int kThreads = kWarps * 32;
+using namespace oryon_attn;
 
+// max|q * scale| and max|k| over the [L, hd] slab of one (image, head), each
+// floored at 1e-12: out[b, h, 0] and out[b, h, 1].
 template <int HD>
-struct Layout {
-  static constexpr int LDH = HD + 8;    // bf16 row stride of the Q, K, V tiles
-  static constexpr int LDS = kBK + 4;   // f32 row stride of a warp's S tile
-  static constexpr int LDP = kBK + 8;   // bf16 row stride of a warp's P tile
-  static constexpr int LDO = HD + 4;    // f32 row stride of a warp's O tile
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + size_t(kBQ) * LDH * 2;
-  static constexpr size_t v_off = k_off + size_t(kBK) * LDH * 2;
-  static constexpr size_t s_off = v_off + size_t(kBK) * LDH * 2;
-  static constexpr size_t p_off = s_off + size_t(kWarps) * 16 * LDS * 4;
-  static constexpr size_t o_off = p_off + size_t(kWarps) * 16 * LDP * 2;
-  static constexpr size_t m_off = o_off + size_t(kWarps) * 16 * LDO * 4;
-  static constexpr size_t bytes = m_off + size_t(kBK) * 4;
-};
-
-// Copy rows [row0, row0 + 64) x columns [col0, col0 + HD) of the packed qkv
-// of image b into a shared tile; rows at or past L become zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* qkv, int b,
-                                          int row0, int col0, int L, int C3) {
-  constexpr int kVec = HD / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < 64 * kVec; idx += kThreads) {
-    const int r = idx / kVec;
-    const int c = idx % kVec;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < L) {
-      val = *reinterpret_cast<const uint4*>(
-          qkv + (size_t(b) * L + row) * C3 + col0 + c * 8);
+__global__ void __launch_bounds__(256)
+qk_absmax_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ out,
+                 int L, int C, float scale) {
+  constexpr int kVec = HD / 8;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const __nv_bfloat16* base = qkv + size_t(b) * L * 3 * C + h * HD;
+  float qm = 0.f, km = 0.f;
+  for (int idx = threadIdx.x; idx < L * kVec; idx += blockDim.x) {
+    const __nv_bfloat16* rowp = base + size_t(idx / kVec) * 3 * C + (idx % kVec) * 8;
+    const uint4 qv = *reinterpret_cast<const uint4*>(rowp);
+    const uint4 kv = *reinterpret_cast<const uint4*>(rowp + C);
+    const __nv_bfloat16* qx = reinterpret_cast<const __nv_bfloat16*>(&qv);
+    const __nv_bfloat16* kx = reinterpret_cast<const __nv_bfloat16*>(&kv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      qm = fmaxf(qm, fabsf(__bfloat162float(qx[e]) * scale));
+      km = fmaxf(km, fabsf(__bfloat162float(kx[e])));
     }
-    *reinterpret_cast<uint4*>(dst + r * Layout<HD>::LDH + c * 8) = val;
   }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-fused_mha_lanes_kernel(const __nv_bfloat16* __restrict__ qkv,
-                       const float* __restrict__ kmask,
-                       __nv_bfloat16* __restrict__ out, int L, int C,
-                       float scale) {
-  using Lay = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + Lay::q_off);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + Lay::k_off);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + Lay::v_off);
-  float* sM = reinterpret_cast<float*>(smem + Lay::m_off);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int C3 = 3 * C;
-
-  float* sS = reinterpret_cast<float*>(smem + Lay::s_off) + warp * 16 * Lay::LDS;
-  __nv_bfloat16* sP =
-      reinterpret_cast<__nv_bfloat16*>(smem + Lay::p_off) + warp * 16 * Lay::LDP;
-  float* sO = reinterpret_cast<float*>(smem + Lay::o_off) + warp * 16 * Lay::LDO;
-
-  load_tile<HD>(sQ, qkv, b, q0, h * HD, L, C3);
-  // two lanes per query row: lane>>1 is the row, lane&1 the half of the
-  // columns this lane handles in the softmax and the rescale
-  const int row = lane >> 1;
-  const int half = lane & 1;
-  for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d) {
-    sO[row * Lay::LDO + d] = 0.f;
+  __shared__ float red[2][8];
+  for (int off = 16; off > 0; off >>= 1) {
+    qm = fmaxf(qm, __shfl_xor_sync(0xffffffffu, qm, off));
+    km = fmaxf(km, __shfl_xor_sync(0xffffffffu, km, off));
+  }
+  if (threadIdx.x % 32 == 0) {
+    red[0][threadIdx.x / 32] = qm;
+    red[1][threadIdx.x / 32] = km;
   }
   __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      qa[HD / 16];
-#pragma unroll
-  for (int k = 0; k < HD / 16; ++k) {
-    wmma::load_matrix_sync(qa[k], sQ + warp * 16 * Lay::LDH + k * 16, Lay::LDH);
-  }
-
-  float m_run = -INFINITY;  // running max of this lane's row
-  float l_run = 0.f;        // running sum of bf16-rounded exponentials
-
-  for (int k0 = 0; k0 < L; k0 += kBK) {
-    load_tile<HD>(sK, qkv, b, k0, C + h * HD, L, C3);
-    load_tile<HD>(sV, qkv, b, k0, 2 * C + h * HD, L, C3);
-    for (int j = threadIdx.x; j < kBK; j += kThreads) {
-      sM[j] = (k0 + j < L) ? kmask[k0 + j] : -INFINITY;
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < 8; ++w) {
+      qm = fmaxf(qm, red[0][w]);
+      km = fmaxf(km, red[1][w]);
     }
-    __syncthreads();
-
-    // S[16, 64] = Q_w[16, HD] . K^T[HD, 64]
-#pragma unroll
-    for (int n = 0; n < kBK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, sK + n * 16 * Lay::LDH + k * 16, Lay::LDH);
-        wmma::mma_sync(acc, qa[k], kb, acc);
-      }
-      wmma::store_matrix_sync(sS + n * 16, acc, Lay::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this tile: each lane owns 32 of its row's 64 keys
-    float s[kBK / 2];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
-      const int col = half * (kBK / 2) + j;
-      s[j] = sS[row * Lay::LDS + col] * scale + sM[col];
-      tmax = fmaxf(tmax, s[j]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_run, tmax);
-    const float corr = __expf(m_run - m_new);  // 0 on the first tile
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
-      const __nv_bfloat16 p = __float2bfloat16(__expf(s[j] - m_new));
-      psum += __bfloat162float(p);
-      sP[row * Lay::LDP + half * (kBK / 2) + j] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d) {
-      sO[row * Lay::LDO + d] *= corr;
-    }
-    __syncwarp();
-
-    // O_w[16, HD] += P[16, 64] . V[64, HD]
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + n * 16, Lay::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < kBK / 16; ++k) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, sP + k * 16, Lay::LDP);
-        wmma::load_matrix_sync(vb, sV + k * 16 * Lay::LDH + n * 16, Lay::LDH);
-        wmma::mma_sync(acc, pa, vb, acc);
-      }
-      wmma::store_matrix_sync(sO + n * 16, acc, Lay::LDO, wmma::mem_row_major);
-    }
-    __syncthreads();  // K, V and the mask tile are overwritten next
-  }
-
-  const int q = q0 + warp * 16 + row;
-  if (q < L) {
-    const float inv = 1.f / l_run;
-    __nv_bfloat16* dst = out + (size_t(b) * L + q) * C + h * HD;
-    for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); d += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(
-          sO[row * Lay::LDO + d] * inv, sO[row * Lay::LDO + d + 1] * inv);
-    }
+    out[(size_t(b) * gridDim.x + h) * 2] = fmaxf(qm, 1e-12f);
+    out[(size_t(b) * gridDim.x + h) * 2 + 1] = fmaxf(km, 1e-12f);
   }
 }
 
-template <int HD>
-cudaError_t launch(const __nv_bfloat16* qkv, const float* kmask,
-                   __nv_bfloat16* out, int B, int L, int C, int heads,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t bytes = Layout<HD>::bytes;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mha_lanes_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  dim3 grid((L + kBQ - 1) / kBQ, heads, B);
-  fused_mha_lanes_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-      qkv, kmask, out, L, C, scale);
-  return cudaGetLastError();
+AttnParams packed_params(const void* qkv, const void* kmask, void* out, int L,
+                         int C, int heads, float scale) {
+  const auto* base = static_cast<const __nv_bfloat16*>(qkv);
+  AttnParams p{};
+  p.q = base;
+  p.k = base + C;
+  p.v = base + 2 * C;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.sb = (long long)L * 3 * C;
+  p.sh = C / heads;
+  p.sr = 3 * C;
+  p.ob = (long long)L * C;
+  p.oh = C / heads;
+  p.orow = C;
+  p.kmask = static_cast<const float*>(kmask);
+  p.L = L;
+  p.heads = heads;
+  p.scale = scale;
+  return p;
 }
 
 }  // namespace
@@ -234,15 +119,35 @@ extern "C" int oryon_fused_mha_lanes_bf16(const void* qkv, const void* kmask,
   if (B <= 0 || L <= 0 || heads <= 0 || C % heads != 0) {
     return int(cudaErrorInvalidValue);
   }
-  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* m = static_cast<const float*>(kmask);
-  auto* o = static_cast<__nv_bfloat16*>(out);
+  const AttnParams p = packed_params(qkv, kmask, out, L, C, heads, scale);
+  return int(launch_hd<kKeyMask>(C / heads, p, B,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The same with int8 logits.  absmax: [B, heads, 2] f32 scratch, written by
+// the pre-pass and read by the main kernel on the same stream.
+extern "C" int oryon_fused_mha_lanes_i8qk_bf16(const void* qkv,
+                                               const void* kmask, void* absmax,
+                                               void* out, int B, int L, int C,
+                                               int heads, float scale,
+                                               void* stream) {
+  if (B <= 0 || L <= 0 || heads <= 0 || C % heads != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  const auto* x = static_cast<const __nv_bfloat16*>(qkv);
+  auto* am = static_cast<float*>(absmax);
   auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(heads, B);
   switch (C / heads) {
-    case 16: return int(launch<16>(q, m, o, B, L, C, heads, scale, s));
-    case 32: return int(launch<32>(q, m, o, B, L, C, heads, scale, s));
-    case 64: return int(launch<64>(q, m, o, B, L, C, heads, scale, s));
-    case 128: return int(launch<128>(q, m, o, B, L, C, heads, scale, s));
+    case 16: qk_absmax_kernel<16><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
+    case 32: qk_absmax_kernel<32><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
+    case 64: qk_absmax_kernel<64><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
+    case 128: qk_absmax_kernel<128><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
     default: return int(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  AttnParams p = packed_params(qkv, kmask, out, L, C, heads, scale);
+  p.absmax = am;
+  return int(launch_hd<kKeyMaskI8>(C / heads, p, B, s));
 }

@@ -4,8 +4,10 @@ Counterpart of ``OryonPredictor`` in ``oryon_tpu/infer.py``: a long-lived
 object that answers "here are two RGB-D views and a prompt; where did the
 object move?" requests at a fixed batch size and depth resolution.  Short
 tails are padded with the first request and dropped from the results; text
-embeddings are memoised per prompt string.  ``from_config`` and the CLI of
-the JAX engine are not ported yet.
+embeddings are memoised per prompt string.  ``from_config`` builds the
+engine from the config tree (``config.load_config``), where a user chooses
+the attention kernels (``model.attn_impl=...``); restoring a checkpoint and
+the CLI of the JAX engine are not ported yet.
 
 Request dict: {"anchor": {"rgb": [H,W,3] u8, "depth": [Ho,Wo] mm,
 "camera": K, "mask": optional [H,W] u8}, "query": {...}, "prompt": str}.
@@ -20,13 +22,16 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from oryon_tpu_torch import _host
+from oryon_tpu_torch.config import TestConfig
 from oryon_tpu_torch.data.pair_batch import PairBatch, PairView
+from oryon_tpu_torch.data.templates import CLIP_TEMPLATES
+from oryon_tpu_torch.models.layers import random_init_
+from oryon_tpu_torch.models.oryon import (build_model, resolve_attn_impl,
+                                          resolve_quant)
+from oryon_tpu_torch.models.tokenizer import ClipTokenizer
 from oryon_tpu_torch.ops.matching import MatchParams
-from oryon_tpu_torch.pipeline import PipelineConfig, make_run_fn
-
-# the JAX package's shipped serving defaults (oryon_tpu/config.py TestConfig)
-ICP_REFINE, ICP_POINTS, ICP_ITERS, ICP_TRIM = True, 1024, 48, 0.6
+from oryon_tpu_torch.pipeline import (PipelineConfig, build_pointdsc_solver,
+                                      make_run_fn, pointdsc_weights_available)
 
 
 def parse_camera(spec) -> np.ndarray:
@@ -89,8 +94,8 @@ class OryonPredictor:
         self.depth_hw = tuple(depth_hw)
         if tokenize_fn is None:
             # prompt shape follows the model: P templates x L context tokens
-            tokenizer = _host.clip_tokenizer(vocabulary)
-            templates = _host.clip_templates()[:model.fusion_cfg.num_prompts]
+            tokenizer = ClipTokenizer(vocabulary)
+            templates = CLIP_TEMPLATES[:model.fusion_cfg.num_prompts]
             ctx = model.text_cfg.context_length
 
             def tokenize_fn(prompt: str) -> np.ndarray:
@@ -98,17 +103,64 @@ class OryonPredictor:
                                  context_length=ctx)
 
         self._tokenize = tokenize_fn
+        # ICP settings left at None follow the shipped TestConfig defaults,
+        # so the direct constructor and ``from_config`` agree
+        tc = TestConfig()
         cfg = PipelineConfig(
             mask_source=mask_source, mask_threshold=mask_threshold, solver=solver,
-            icp_refine=ICP_REFINE if icp_refine is None else bool(icp_refine),
-            icp_points=ICP_POINTS if icp_points is None else int(icp_points),
-            icp_iters=ICP_ITERS if icp_iters is None else int(icp_iters),
-            icp_trim=ICP_TRIM if icp_trim is None else float(icp_trim),
+            icp_refine=tc.icp_refine if icp_refine is None else bool(icp_refine),
+            icp_points=tc.icp_points if icp_points is None else int(icp_points),
+            icp_iters=tc.icp_iters if icp_iters is None else int(icp_iters),
+            icp_trim=tc.icp_trim if icp_trim is None else float(icp_trim),
             match=MatchParams(src_capacity=5120, max_corrs=n_corrs, dist_th=dist_th))
         self._run = make_run_fn(self.model, cfg, self.pointdsc)
         self._text_cache: Dict[str, torch.Tensor] = {}
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._max_corrs = n_corrs
+
+    @classmethod
+    def from_config(cls, cfg, *, batch_size: Optional[int] = None,
+                    depth_hw=(480, 640), device="cuda",
+                    generator: Optional[torch.Generator] = None
+                    ) -> "OryonPredictor":
+        """Build from the config tree (``config.Config``): the model by
+        ``cfg.model.size/quant/attn_impl``, every ``cfg.test.*`` setting, and
+        the configured solver, falling back to RANSAC with a warning when no
+        trained PointDSC weights exist.  Runs on the card unless the caller
+        passes ``device="cpu"``.
+
+        Weights are random, drawn from ``generator`` (default: seeded with
+        ``cfg.seed`` if ``cfg.use_seed`` else 1): restoring ``eval.ckpt`` and
+        merging pretrained towers are not ported yet, so a non-empty
+        ``cfg.eval.ckpt`` raises instead of serving other weights silently."""
+        if cfg.eval.ckpt is not None and str(cfg.eval.ckpt) != "":
+            raise NotImplementedError(
+                f"eval.ckpt={cfg.eval.ckpt!r}: checkpoint restore is not ported "
+                "yet (ROADMAP queue 1: checkpoint restore + pretrained merge)")
+        size = cfg.model.size
+        model = build_model(size, quant=resolve_quant(size, cfg.model.quant),
+                            attn_impl=resolve_attn_impl(size, cfg.model.attn_impl))
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.seed if cfg.use_seed else 1)
+        random_init_(model, generator)
+        solver, pointdsc = cfg.test.solver, None
+        if solver == "pointdsc":
+            if pointdsc_weights_available(cfg.pretrained.pointdsc):
+                pointdsc = build_pointdsc_solver(cfg.pretrained.pointdsc)
+            else:
+                print("WARNING: PointDSC snapshot absent; serving with "
+                      "RANSAC registration")
+                solver = "ransac"
+        return cls(model, pointdsc, device=device,
+                   batch_size=int(batch_size or cfg.dataset.batch_size),
+                   img_size=cfg.dataset.img_size, depth_hw=depth_hw,
+                   mask_source=cfg.test.mask, solver=solver,
+                   n_corrs=cfg.test.n_corrs, dist_th=cfg.test.dist_th,
+                   mask_threshold=cfg.test.mask_threshold,
+                   vocabulary=cfg.pretrained.vocabulary,
+                   seed=cfg.seed if cfg.use_seed else 0,
+                   icp_refine=cfg.test.icp_refine, icp_points=cfg.test.icp_points,
+                   icp_iters=cfg.test.icp_iters, icp_trim=cfg.test.icp_trim)
 
     def _text_emb(self, prompt: str) -> torch.Tensor:
         emb = self._text_cache.get(prompt)

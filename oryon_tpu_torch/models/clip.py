@@ -6,12 +6,24 @@ dropped), and EOT-pooled projected text embeddings.  Module and parameter
 names follow the flax tree so ``models.convert.from_jax_params`` is a plain
 layout map; the 24 (or 12) scanned blocks become a ``ModuleList``.
 
-The vision tower's default attention is ``"fused"``: the hand-written
-Hopper kernel K1 (``ops/cuda/mha_lanes.py``) reads the packed in_proj output
-directly.  The JAX tower pads L from 577 to 640 once and masks the pad keys
-because its TPU kernel wants lane-aligned L; the CUDA kernel masks ragged
-tiles itself, so the port runs the 577 real tokens unpadded (masked pad keys
-add exactly zero weight, so real-token outputs do not change).
+``ClipVisionConfig.attn_impl`` chooses the vision tower's attention, with
+the JAX package's value names:
+
+* ``fused`` (default): kernel K1 (``ops/cuda/mha_lanes.py``) reads the packed
+  in_proj output directly.  The JAX tower pads L from 577 to 640 once and
+  masks the pad keys because its TPU kernel wants lane-aligned L; the CUDA
+  kernel masks ragged tiles itself, so the port runs the 577 real tokens
+  unpadded (masked pad keys add exactly zero weight, so real-token outputs
+  do not change).
+* ``fused_i8qk``: kernel K1-i8, the same with int8 logits.  Its per-head
+  absmax scales are taken over every row of the sequence, so here the tower
+  pads 577 -> 640 and passes ``seg`` exactly as the JAX tower does: the
+  scales must see the same rows or the result is a different function.
+* ``flash``: kernel K5 (``ops/cuda/flash.py``) on [B, H, L, D] after the
+  head-split transposes, padded the same way, padding isolated by segment
+  ids.
+* ``einsum`` / ``auto``: plain PyTorch, the only path that takes a mask.
+* ``noattn``: a profiling floor, not an attention.
 """
 from __future__ import annotations
 
@@ -22,7 +34,11 @@ import torch
 import torch.nn as nn
 
 from oryon_tpu_torch.models.layers import Conv, LayerNorm, dense_cls
+from oryon_tpu_torch.ops.cuda.flash import flash_mha, flash_mha_padded
 from oryon_tpu_torch.ops.cuda.mha_lanes import fused_mha_lanes_qkv
+
+ATTN_IMPLS = ("fused", "fused_i8qk", "flash", "einsum", "auto", "noattn")
+PADDED_IMPLS = ("fused_i8qk", "flash")   # the tower pads L to a multiple of 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +48,7 @@ class ClipVisionConfig:
     width: int = 1024
     layers: int = 24
     heads: int = 16
-    attn_impl: str = "fused"   # fused (kernel K1) | einsum
+    attn_impl: str = "fused"   # fused | fused_i8qk | flash | einsum | auto | noattn
     quant: str = "none"        # none | int8
 
     @property
@@ -54,43 +70,77 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def _key_mask(seg: Optional[torch.Tensor], L: int, device) -> torch.Tensor:
+    """The one [L] additive key mask of the fused kernels from batch-uniform
+    padding segment ids: a 1-D [L] vector, or [B, L] with identical rows."""
+    if seg is None:
+        return torch.zeros(L, dtype=torch.float32, device=device)
+    if seg.dim() == 2:
+        if not bool((seg == seg[:1]).all()):
+            raise ValueError("attn_impl='fused' got per-sample segment ids "
+                             "(rows differ); use attn_impl='auto'.")
+        seg = seg[0]
+    elif seg.dim() != 1:
+        raise ValueError(f"seg must be [L] or [B, L], got shape {tuple(seg.shape)}")
+    return torch.where(seg > 0, 0.0, -1e9).to(torch.float32)
+
+
 class MultiHeadAttention(nn.Module):
-    """Packed-QKV multi-head attention (torch nn.MultiheadAttention layout)."""
+    """Packed-QKV multi-head attention (torch nn.MultiheadAttention layout).
+
+    ``seg`` holds batch-uniform padding segment ids (1 real, 0 padding) for
+    a sequence the caller padded; the fused kernels derive one key mask from
+    it, so per-sample segments raise."""
 
     def __init__(self, width: int, heads: int, dtype=torch.bfloat16,
-                 attn_impl: str = "einsum", quant: str = "none"):
+                 attn_impl: str = "auto", quant: str = "none"):
         super().__init__()
-        if attn_impl not in ("fused", "einsum"):
-            raise ValueError(f"attn_impl {attn_impl!r} not in ('fused', 'einsum')")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         Dense = dense_cls(quant)
         self.in_proj = Dense(width, 3 * width, dtype)
         self.out_proj = Dense(width, width, dtype)
         self.heads, self.dtype, self.attn_impl = heads, dtype, attn_impl
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, L, D = x.shape
         hd = D // self.heads
         qkv = self.in_proj(x)
-        if self.attn_impl == "fused":
+        if self.attn_impl in ("fused", "fused_i8qk"):
             if mask is not None:
                 raise ValueError("the fused path is unmasked attention only")
-            kmask = torch.zeros(L, dtype=torch.float32, device=x.device)
-            return self.out_proj(fused_mha_lanes_qkv(qkv.contiguous(), kmask,
-                                                     self.heads, hd ** -0.5))
+            out = fused_mha_lanes_qkv(
+                qkv.contiguous(), _key_mask(seg, L, x.device), self.heads,
+                hd ** -0.5, qk_int8=self.attn_impl == "fused_i8qk")
+            return self.out_proj(out)
         q, k, v = (t.reshape(B, L, self.heads, hd).transpose(1, 2)
                    for t in qkv.split(D, dim=-1))
-        attn = torch.einsum("bhld,bhmd->bhlm", q, k) * (hd ** -0.5)
-        if mask is not None:
-            attn = attn + mask.to(attn.dtype)
-        attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
-        out = torch.einsum("bhlm,bhmd->bhld", attn, v)
+        if self.attn_impl == "flash":
+            if mask is not None:
+                raise ValueError("the flash path is unmasked attention only")
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            if seg is not None:
+                seg2 = seg.expand(B, L) if seg.dim() == 1 else seg
+                out = flash_mha_padded(q, k, v, hd ** -0.5,
+                                       seg2.to(torch.int32).contiguous())
+            else:
+                out = flash_mha(q, k, v, hd ** -0.5)
+        elif self.attn_impl == "noattn":
+            # profiling floor: no score or value products; not an attention
+            out = v + 0.0 * q
+        else:
+            attn = torch.einsum("bhld,bhmd->bhlm", q, k) * (hd ** -0.5)
+            if mask is not None:
+                attn = attn + mask.to(attn.dtype)
+            attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+            out = torch.einsum("bhlm,bhmd->bhld", attn, v)
         return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
 
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, dtype=torch.bfloat16,
-                 attn_impl: str = "einsum", quant: str = "none"):
+                 attn_impl: str = "auto", quant: str = "none"):
         super().__init__()
         Dense = dense_cls(quant)
         self.ln_1 = LayerNorm(width)
@@ -99,9 +149,9 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp_c_fc = Dense(width, 4 * width, dtype)
         self.mlp_c_proj = Dense(4 * width, width, dtype)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), mask)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), mask, seg)
         h = quick_gelu(self.mlp_c_fc(self.ln_2(x)))
         return x + self.mlp_c_proj(h)
 
@@ -132,9 +182,18 @@ class ClipVisionTower(nn.Module):
         cls = self.class_embedding.to(self.dtype).expand(B, 1, c.width)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(self.dtype)
         x = self.ln_pre(x).to(self.dtype)
+        seg = None
+        L = x.shape[1]
+        if c.attn_impl in PADDED_IMPLS:
+            # pad the sequence to a multiple of 128 once, outside the layer
+            # loop, and isolate the pad tokens with segment ids, as the JAX
+            # tower does; the pad rows are dropped after the stack
+            Lp = -(-L // 128) * 128
+            x = torch.nn.functional.pad(x, (0, 0, 0, Lp - L))
+            seg = (torch.arange(Lp, device=x.device) < L).to(torch.int32)
         for block in self.resblocks:
-            x = block(x)
-        toks = self.ln_post(x[:, 1:])
+            x = block(x, None, seg)
+        toks = self.ln_post(x[:, 1:L])
         return toks.reshape(B, c.grid, c.grid, c.width)
 
 
@@ -150,7 +209,7 @@ class ClipTextTower(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(c.context_length, c.width))
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(c.width, c.heads, dtype, "einsum")
+            ResidualAttentionBlock(c.width, c.heads, dtype, "auto")
             for _ in range(c.layers))
         self.ln_final = LayerNorm(c.width)
         self.text_projection = nn.Parameter(torch.empty(c.width, c.embed_dim))

@@ -94,7 +94,12 @@ class OryonModel(nn.Module):
 
 def full_oryon(dtype=torch.bfloat16, quant: str = "none",
                attn_impl: str = "fused") -> OryonModel:
-    """Production configuration: ViT-L/14@336, Swin-B@384, 192² x 32-ch."""
+    """Production configuration: ViT-L/14@336, Swin-B@384, 192² x 32-ch.
+
+    ``quant="int8"`` runs the CLIP vision projections in int8; the Swin
+    tower stays bf16, as in the JAX package (``SwinConfig.quant`` is there
+    for a caller that builds its own ``OryonModel``).  ``attn_impl`` selects
+    the vision tower's attention kernel (``cfg.model.attn_impl``)."""
     return OryonModel(vision_cfg=ClipVisionConfig(quant=quant, attn_impl=attn_impl),
                       dtype=dtype)
 
@@ -138,12 +143,34 @@ def tiny_oryon(dtype=torch.float32) -> OryonModel:
 MODEL_FACTORIES = {"full": full_oryon, "small": small_oryon, "tiny": tiny_oryon}
 
 
+def resolve_quant(size: str, quant: str) -> str:
+    """Config-level quant resolution for entry points: ``model.quant``
+    defaults to "int8", but the int8 path only exists on the full CLIP
+    tower, so the small/tiny sizes resolve to "none".  Explicit misuse
+    (``build_model(size="tiny", quant="int8")``) still raises."""
+    return quant if size == "full" else "none"
+
+
+def resolve_attn_impl(size: str, attn_impl: str) -> str:
+    """Config-level attn_impl resolution, the same policy as
+    ``resolve_quant``: the kernel variants are wired for the full CLIP
+    vision tower only, so other sizes keep their model default."""
+    return attn_impl if size == "full" else "fused"
+
+
 def build_model(size: str = "full", dtype=None, quant: str = "none",
                 attn_impl: str = "fused") -> OryonModel:
     """Model by size name; quant and attn_impl apply to the full model only."""
-    kwargs = {} if dtype is None else {"dtype": dtype}
-    if size == "full":
-        kwargs.update(quant=quant, attn_impl=attn_impl)
-    elif quant != "none" or attn_impl != "fused":
-        raise ValueError("quant/attn_impl are only wired for size='full'")
-    return MODEL_FACTORIES[size](**kwargs)
+    factory = MODEL_FACTORIES[size]
+    kwargs = {}
+    if dtype is not None:
+        kwargs["dtype"] = dtype
+    if quant != "none":
+        if size != "full":
+            raise ValueError("model.quant is only wired for size='full'")
+        kwargs["quant"] = quant
+    if attn_impl != "fused":
+        if size != "full":
+            raise ValueError("model.attn_impl is only wired for size='full'")
+        kwargs["attn_impl"] = attn_impl
+    return factory(**kwargs)

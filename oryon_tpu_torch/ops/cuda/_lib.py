@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``*.cu`` file in ``oryon_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which
-is loaded with ``ctypes``.  The library lands in ``build/oryon_tpu_torch/``
-at the root of the checkout, named by a hash of the sources and flags, so an
-edited source is rebuilt on first use and an unchanged one is reused.
+Hopper (``sm_90a``), one ``nvcc`` per source and all started together, and
+the objects are linked into one shared library with a plain C interface,
+which is loaded with ``ctypes``.  The library lands in
+``build/oryon_tpu_torch/`` at the root of the checkout, named by a hash of
+the sources (``*.cu`` and ``*.cuh``) and flags, so an edited source is
+rebuilt on first use and an unchanged one is reused.
 
 Nothing here runs at import time: the library is built by the first call of
 ``library()``, which the kernel wrappers make on their first CUDA launch.
@@ -25,14 +27,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "oryon_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes; every one returns a cudaError_t as int
 SIGNATURES = {
-    "oryon_fused_mha_lanes_bf16": [_P, _P, _P, _I, _I, _I, _I,
-                                   ctypes.c_float, _P],
+    "oryon_fused_mha_lanes_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_fused_mha_lanes_i8qk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_flash_mha_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_packed_window_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                           _I, _F, _P],
+    "oryon_band_window_attention_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _F, _P],
     "oryon_masked_argmin_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -57,6 +65,41 @@ def _sources():
                   + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
+def _build(srcs, so: str) -> str:
+    """Compile each ``.cu`` of ``srcs`` to an object, all at once, and link
+    them into ``so``.  Returns the compilers' output (the ptxas lines)."""
+    nvcc = _nvcc()
+    tag = f"{os.path.basename(so)[:-3]}.{os.getpid()}"
+    objs, procs = [], []
+    for s in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{tag}.{os.path.basename(s)[:-3]}.o")
+        objs.append(obj)
+        procs.append((s, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, s], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    outputs, failed = [], []
+    for s, proc in procs:       # every compiler is waited for, failed or not
+        out = proc.communicate()[0]
+        outputs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(s)} ({proc.returncode}):\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        tmp = f"{so}.{os.getpid()}.tmp"
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(outputs)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     global _lib
@@ -73,18 +116,11 @@ def library() -> ctypes.CDLL:
         log = so[:-3] + ".ptxas.txt"
         seconds = 0.0
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            ptxas = _build(srcs, so)
             seconds = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}\n{res.stderr}")
             with open(log, "w") as f:
-                f.write(res.stdout + res.stderr)
-            os.replace(tmp, so)
+                f.write(ptxas)
         lib = ctypes.CDLL(so)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,4 +1,5 @@
-"""Fused multi-head attention on the lane-packed [B, L, 3C] layout (K1).
+"""Fused multi-head attention on the lane-packed [B, L, 3C] layout (K1, and
+K1-i8 with ``qk_int8=True``).
 
 Counterpart of ``oryon_tpu/ops/pallas/mha_lanes.py``.  The kernel reads the
 packed in_proj output directly (q | k | v along the last axis, heads packed
@@ -7,6 +8,13 @@ source is ``oryon_tpu_torch/csrc/mha_lanes.cu``.
 
 ``fused_mha_lanes_qkv`` launches the kernel for a CUDA tensor and runs the
 plain PyTorch version (``reference_mha``) for a CPU tensor.
+
+``qk_int8=True`` forms the logits from int8 codes: per (image, head),
+``q * scale`` and ``k`` are quantised by the absmax of their whole [L, hd]
+slab (``round(x * (127 / max))``, half to even, max floored at 1e-12), the
+products are summed in int32 and descaled by ``qm * km / 127**2``.  The
+logits carry about 1% quantisation noise by design; the rest of the
+attention is unchanged.
 """
 from __future__ import annotations
 
@@ -14,19 +22,39 @@ import torch
 
 from oryon_tpu_torch.ops.cuda import _lib
 
-launches = 0   # kernel launches so far; callers may reset it to 0
+launches = 0      # K1 launches so far; callers may reset it to 0
+launches_i8 = 0   # K1-i8 launches (pre-pass and main kernel count as one)
+
+
+def _int8_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """[B, H, L, L] f32 logits from per-(image, head) int8 codes of q * scale
+    and k.  The codes go through an f32 matmul, which is exact here: every
+    product is at most 127**2 and a sum of hd <= 128 of them stays below
+    2**24 (TF32 must be off, as it is by default for matmuls)."""
+    qf = q.float() * scale
+    kf = k.float()
+    qm = qf.abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1e-12)
+    km = kf.abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1e-12)
+    qi = torch.round(qf * (127.0 / qm))
+    ki = torch.round(kf * (127.0 / km))
+    si = torch.einsum("bhld,bhmd->bhlm", qi, ki)
+    return si * (qm * km / (127.0 * 127.0))
 
 
 def reference_mha(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
-                  scale: float) -> torch.Tensor:
+                  scale: float, qk_int8: bool = False) -> torch.Tensor:
     """Plain version with the semantics of the JAX ``_reference_mha``:
-    logits in the input dtype, softmax in f32, probabilities cast back."""
+    logits in the input dtype, softmax in f32, probabilities cast back;
+    with ``qk_int8`` the logits of the JAX kernel's int8 branch."""
     B, L, C3 = qkv.shape
     C = C3 // 3
     hd = C // heads
     q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2)
                for t in qkv.split(C, dim=-1))
-    s = torch.einsum("bhld,bhmd->bhlm", q, k).float() * scale
+    if qk_int8:
+        s = _int8_logits(q, k, scale)
+    else:
+        s = torch.einsum("bhld,bhmd->bhlm", q, k).float() * scale
     s = s + kmask.float()[None, None, None, :]
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
     o = torch.einsum("bhlm,bhmd->bhld", p, v)
@@ -34,15 +62,16 @@ def reference_mha(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
 
 
 def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
-                        scale: float) -> torch.Tensor:
-    """softmax(q_h k_h^T * scale + kmask) v_h for every head h.
+                        scale: float, qk_int8: bool = False) -> torch.Tensor:
+    """softmax(q_h k_h^T * scale + kmask) v_h for every head h; with
+    ``qk_int8`` the logits come from int8 codes (see the module docstring).
 
     qkv: [B, L, 3C] packed in_proj output; kmask: [L] additive f32 (0 for
     real keys, -1e9 for padding).  Returns [B, L, C] in qkv's dtype.  On a
     CUDA device qkv must be bf16 and contiguous with C / heads in
     {16, 32, 64, 128}; L needs no alignment.
     """
-    global launches
+    global launches, launches_i8
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % heads:
         raise ValueError(f"qkv {tuple(qkv.shape)} is not [B, L, 3C] with "
                          f"C divisible by heads={heads}")
@@ -51,7 +80,7 @@ def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     if kmask.shape != (L,):
         raise ValueError(f"kmask {tuple(kmask.shape)} != ({L},)")
     if qkv.device.type == "cpu":
-        return reference_mha(qkv, kmask, heads, scale)
+        return reference_mha(qkv, kmask, heads, scale, qk_int8)
     if qkv.device.type != "cuda" or kmask.device != qkv.device:
         raise ValueError(f"qkv on {qkv.device}, kmask on {kmask.device}: "
                          "need both on one CUDA device")
@@ -64,9 +93,19 @@ def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
         raise ValueError(f"head dim {C // heads} not in (16, 32, 64, 128)")
     out = torch.empty((B, L, C), dtype=qkv.dtype, device=qkv.device)
     lib = _lib.library()
-    err = lib.oryon_fused_mha_lanes_bf16(
-        qkv.data_ptr(), kmask.data_ptr(), out.data_ptr(), B, L, C, heads,
-        float(scale), torch.cuda.current_stream(qkv.device).cuda_stream)
-    _lib.check(err, "fused_mha_lanes_qkv")
-    launches += 1
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    if qk_int8:
+        # per-(image, head) max|q * scale| and max|k|, written by the pre-pass
+        absmax = torch.empty((B, heads, 2), dtype=torch.float32, device=qkv.device)
+        err = lib.oryon_fused_mha_lanes_i8qk_bf16(
+            qkv.data_ptr(), kmask.data_ptr(), absmax.data_ptr(), out.data_ptr(),
+            B, L, C, heads, float(scale), stream)
+        _lib.check(err, "fused_mha_lanes_qkv(qk_int8=True)")
+        launches_i8 += 1
+    else:
+        err = lib.oryon_fused_mha_lanes_bf16(
+            qkv.data_ptr(), kmask.data_ptr(), out.data_ptr(), B, L, C, heads,
+            float(scale), stream)
+        _lib.check(err, "fused_mha_lanes_qkv")
+        launches += 1
     return out

@@ -16,8 +16,10 @@ takes it as an argument.  A test can rebuild the same arrays from JAX keys.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from oryon_tpu_torch.data.pair_batch import PairBatch, PairView
@@ -26,7 +28,8 @@ from oryon_tpu_torch.geometry.coords import scale_coords, valid_coords
 from oryon_tpu_torch.geometry.kabsch import masked_icp, ransac_kabsch
 from oryon_tpu_torch.geometry.pcd import lift_pcd_at
 from oryon_tpu_torch.models.oryon import OryonModel
-from oryon_tpu_torch.models.pointdsc import PointDSC
+from oryon_tpu_torch.models.convert import from_jax_params
+from oryon_tpu_torch.models.pointdsc import PointDSC, PointDSCConfig
 from oryon_tpu_torch.ops.matching import MatchParams, nn_correspondences, src_capacity
 from oryon_tpu_torch.ops.resize import resize_mask_nearest
 from oryon_tpu_torch.ops.sampling import flat_to_yx, masked_select
@@ -146,6 +149,80 @@ def _pose_from_corrs(noise_ransac, pa, pq, w, cfg: PipelineConfig,
     else:
         T = pointdsc(pa, pq, w)[0]
     return T, w.sum(-1)
+
+
+def make_pipeline_config(cfg, solver: str,
+                         mask_source: Optional[str] = None) -> PipelineConfig:
+    """PipelineConfig from the config tree (``config.Config``): the one
+    place where ``cfg.test.*`` becomes pipeline settings.  ``mask_source``
+    overrides ``cfg.test.mask``.  ``cfg.debug_valid`` (ground-truth
+    correspondences in place of matching, an evaluation probe) is not part
+    of the serving path and raises."""
+    if cfg.debug_valid:
+        raise NotImplementedError(
+            "debug_valid (ground-truth correspondences) belongs to the "
+            "evaluation entry point, which is not ported yet")
+    return PipelineConfig(
+        mask_source=cfg.test.mask if mask_source is None else mask_source,
+        mask_threshold=cfg.test.mask_threshold,
+        solver=solver,
+        match=MatchParams(src_capacity=5120, max_corrs=cfg.test.n_corrs,
+                          dist_th=cfg.test.dist_th),
+        icp_refine=cfg.test.icp_refine,
+        icp_points=cfg.test.icp_points,
+        icp_iters=cfg.test.icp_iters,
+        icp_trim=cfg.test.icp_trim,
+    )
+
+
+def pointdsc_snapshot_path(pretrained_dir: str) -> str:
+    """Where the published PointDSC 3DMatch torch snapshot would lie."""
+    return os.path.join(
+        pretrained_dir, "snapshot/PointDSC_3DMatch_release/models/model_best.pkl")
+
+
+def pointdsc_native_path(pretrained_dir: str) -> str:
+    """Flax-native PointDSC weights (written by the JAX package's
+    ``scripts/train_pointdsc.py``): a flat npz of '/'-joined variable paths
+    across all collections."""
+    return os.path.join(pretrained_dir, "native.npz")
+
+
+def pointdsc_weights_available(pretrained_dir: str) -> bool:
+    """True when trained PointDSC weights exist in either format: the gate
+    of the protocol solver (a random-init network gives noise poses, so
+    ``OryonPredictor.from_config`` falls back to RANSAC without them)."""
+    return (os.path.exists(pointdsc_native_path(pretrained_dir))
+            or os.path.exists(pointdsc_snapshot_path(pretrained_dir)))
+
+
+def build_pointdsc_solver(pretrained_dir: str) -> PointDSC:
+    """The PointDSC module with the trained weights of ``native.npz``,
+    bridged by ``from_jax_params``; its depth is read off the tree.  Says
+    which file it loaded.  The torch-snapshot converter is not ported: a
+    directory that holds only the snapshot raises, and so does one that
+    holds neither (no random weights are served)."""
+    native = pointdsc_native_path(pretrained_dir)
+    if not os.path.exists(native):
+        if os.path.exists(pointdsc_snapshot_path(pretrained_dir)):
+            raise NotImplementedError(
+                "only the PointDSC torch snapshot is present; its converter "
+                "is not ported yet (ROADMAP queue 1, checkpoint restore)")
+        raise FileNotFoundError(f"no PointDSC weights under {pretrained_dir!r}")
+    with np.load(native) as z:
+        flat = {tuple(k.split("/")): z[k] for k in z.files}
+    variables: dict = {}
+    for path, leaf in flat.items():
+        node = variables
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    n_layers = len({k[2] for k in flat if k[:2] == ("params", "encoder")
+                    and k[2].startswith("pointcn_")})
+    pd = PointDSC(PointDSCConfig(num_layers=n_layers))
+    pd.load_state_dict(from_jax_params(variables), strict=True)
+    print(f"PointDSC weights: {native}")
+    return pd.eval()
 
 
 def make_run_fn(model: OryonModel, cfg: PipelineConfig,

@@ -52,3 +52,18 @@ def rotation_angle(Ra: np.ndarray, Rb: np.ndarray) -> np.ndarray:
     d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64),
                        axis=(-2, -1))
     return 2.0 * np.arcsin(np.clip(d / (2.0 * np.sqrt(2.0)), 0.0, 1.0))
+
+
+class pallas_interpret:
+    """Run every ``pl.pallas_call`` inside the block in interpret mode, the
+    way the JAX package's own tests reach its TPU kernels on the CPU."""
+
+    def __enter__(self):
+        import functools
+
+        from jax.experimental import pallas as pl
+        self.pl, self.orig = pl, pl.pallas_call
+        pl.pallas_call = functools.partial(self.orig, interpret=True)
+
+    def __exit__(self, *exc):
+        self.pl.pallas_call = self.orig

@@ -63,3 +63,123 @@ def test_argmin_kernel_matches_plain(cuda, precision):
         assert same >= 0.999
     else:
         assert same >= 0.99
+
+
+def _bf16(rs, *shape, device):
+    return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,hd,real", [(2, 256, 4, 16, 200),
+                                           (1, 640, 16, 64, 577),
+                                           (2, 130, 8, 32, 100),
+                                           (1, 70, 2, 128, 70)])
+def test_mha_int8_kernel_matches_plain(cuda, B, L, H, hd, real):
+    """K1-i8 vs its plain version: the int8 codes and int32 sums are the
+    same on both sides, so K1's tolerance holds (2e-2: bf16 exponentials,
+    deferred normalisation, bf16 output)."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    qkv = _bf16(np.random.RandomState(2), B, L, 3 * H * hd, device=cuda)
+    m = torch.where(torch.arange(L) < real, 0.0, -1e9).to(cuda)
+    before = mha_lanes.launches_i8
+    got = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, hd ** -0.5, qk_int8=True)
+    ref = mha_lanes.reference_mha(qkv, m, H, hd ** -0.5, qk_int8=True)
+    torch.cuda.synchronize()
+    assert mha_lanes.launches_i8 == before + 1
+    assert (got.float() - ref.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,D,real", [(2, 4, 256, 16, 200),
+                                          (1, 16, 640, 64, 577),
+                                          (3, 2, 130, 32, 100),
+                                          (1, 2, 70, 128, None),
+                                          (2, 8, 577, 64, None)])
+def test_flash_kernel_matches_plain(cuda, B, H, L, D, real):
+    """K5 vs its plain version, with segment ids (``real`` tokens, the rest
+    padding that attends among itself) and without (ragged L); 2e-2 at bf16."""
+    from oryon_tpu_torch.ops.cuda import flash
+
+    rs = np.random.RandomState(3)
+    q, k, v = (_bf16(rs, B, H, L, D, device=cuda) for _ in range(3))
+    if real is None:
+        got = flash.flash_mha(q, k, v, D ** -0.5)
+        ref = flash.flash_mha_plain(q, k, v, D ** -0.5)
+    else:
+        seg = (torch.arange(L) < real).to(torch.int32).expand(B, L).contiguous().to(cuda)
+        got = flash.flash_mha_padded(q, k, v, D ** -0.5, seg)
+        ref = flash.flash_mha_plain(q, k, v, D ** -0.5, seg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max().item() < 2e-2
+
+
+def _window_case(rs, device, B, side, C, heads, w, shifted):
+    from oryon_tpu_torch.models.swin import shift_attention_mask
+
+    N, nw = w * w, (side // w) ** 2
+    qkv_map = _bf16(rs, B, side, side, 3 * C, device=device)
+    bias = torch.from_numpy(0.5 * rs.randn(1, heads, N, N).astype(np.float32)).expand(
+        nw, heads, N, N)
+    if shifted:
+        bias = bias + torch.from_numpy(shift_attention_mask(side, side, w, w // 2))[:, None]
+    return qkv_map, bias.contiguous().to(device)
+
+
+WINDOW_CASES = [(2, 14, 64, 2, 7, True),      # hd = 32, nw = 4, shifted
+                (1, 7, 128, 2, 7, False),     # hd = 64, a single window
+                (3, 21, 32, 2, 7, True),      # hd = 16, nw = 9
+                (1, 8, 64, 2, 4, True),       # 16-token windows
+                (2, 16, 256, 8, 8, False)]    # 64-token windows: no pad rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,side,C,heads,w,shifted", WINDOW_CASES)
+def test_packed_window_kernel_matches_plain(cuda, B, side, C, heads, w, shifted):
+    """K3 vs its plain version (bias rounded to bf16 on both sides); 2e-2."""
+    from oryon_tpu_torch.models.swin import window_partition
+    from oryon_tpu_torch.ops.cuda import swin_attn
+
+    qkv_map, bias = _window_case(np.random.RandomState(4), cuda, B, side, C, heads, w, shifted)
+    q, k, v = (t.contiguous() for t in window_partition(qkv_map, w).chunk(3, dim=-1))
+    scale = (C // heads) ** -0.5
+    got = swin_attn.packed_window_attention(q, k, v, bias, heads, scale)
+    ref = swin_attn.packed_window_attention_plain(q, k, v, bias, heads, scale)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,side,C,heads,w,shifted", WINDOW_CASES)
+def test_band_window_kernel_matches_plain(cuda, B, side, C, heads, w, shifted):
+    """K4 vs its plain version on the whole map (f32 bias); 2e-2."""
+    from oryon_tpu_torch.ops.cuda import swin_attn
+
+    qkv_map, bias = _window_case(np.random.RandomState(5), cuda, B, side, C, heads, w, shifted)
+    scale = (C // heads) ** -0.5
+    got = swin_attn.band_window_attention(qkv_map, bias, heads, w, scale)
+    ref = swin_attn.band_window_attention_plain(qkv_map, bias, heads, w, scale)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    """On the card a wrapper launches its kernel or raises: f32 inputs, a
+    CPU bias or a head dim without an instantiation are refused."""
+    from oryon_tpu_torch.ops.cuda import flash, mha_lanes, swin_attn
+
+    f32 = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(TypeError):
+        flash.flash_mha(f32, f32, f32, 1.0)
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_mha(*(torch.zeros(1, 2, 64, 48, device=cuda, dtype=torch.bfloat16),) * 3, 1.0)
+    m = torch.zeros(1, 7, 7, 3 * 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        swin_attn.band_window_attention(m, torch.zeros(1, 2, 49, 49), 2, 7, 1.0)
+    with pytest.raises(TypeError):
+        swin_attn.band_window_attention(m.float(), torch.zeros(1, 2, 49, 49, device=cuda), 2, 7, 1.0)
+    with pytest.raises(TypeError):
+        mha_lanes.fused_mha_lanes_qkv(torch.zeros(1, 64, 192, device=cuda),
+                                      torch.zeros(64, device=cuda), 2, 1.0, qk_int8=True)

@@ -190,7 +190,8 @@ view = lambda: {"rgb": (rs.rand(64, 64, 3) * 255).astype(np.uint8),
                 "camera": "60,60,32,24"}
 res = pred.predict_pair(view(), view(), "mug")
 assert np.isfinite(np.asarray(res["pose"])).all()
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "yaml", "orbax"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "yaml", "orbax", "oryon_tpu"))
 assert not bad, bad
 print("ok")
 """
@@ -198,8 +199,8 @@ print("ok")
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports oryon_tpu_torch and serves a request on
-    the CPU (real tokenizer and templates, loaded by path) without jax,
-    flax, yaml or orbax ever entering sys.modules."""
+    the CPU (the port's own tokenizer and templates) without jax, flax,
+    yaml, orbax or the JAX package ever entering sys.modules."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     res = subprocess.run([sys.executable, "-c", _GUARD], cwd=root, env=env,

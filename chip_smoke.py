@@ -8,9 +8,14 @@
 Phases, each printing one line with its result and its time:
   1. device    the card (torch and nvidia-smi); fails without CUDA
   2. build     nvcc builds the kernels from oryon_tpu_torch/csrc/
-  3. k1        fused attention kernel vs its plain version, ViT-L shape
+  3. k1        fused attention kernel (wgmma, head dim 64) vs its plain
+               version at the ViT-L shape and at the edges of its tiling
+               (L = 640, 65, 1, one image, a fully masked leading key tile),
+               one head-dim-32 case on the WMMA kernel, two launches bitwise
+               equal, and the host time of one wrapper call
   4. k1i8      the same with int8 logits, at the padded ViT-L shape
-  5. k5        flash attention on [B, H, L, D] with segment ids
+  5. k5        flash attention on [B, H, L, D] with segment ids, the same
+               edges and a head-dim-32 case
   6. k3, k4    Swin window attention, packed windows and map-level, at both
                Swin-B stages with a shifted-window mask in the bias
   7. k2        masked-argmin kernel vs its plain version, serving shape
@@ -142,6 +147,28 @@ def times_txt(r: dict) -> str:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one fn() call in microseconds: the enqueue alone, the
+    clock read before any synchronise."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def same_twice(torch, fn, what: str) -> None:
+    """Two launches on the same inputs give bitwise the same output."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(a, b)), f"{what}: two launches differ")
+
+
 def sdpa_packed(torch, qkv, mask, heads):
     """One library call for attention on packed [B, L, 3C] rows: strided head
     views into scaled_dot_product_attention, additive mask broadcast."""
@@ -169,6 +196,26 @@ def phase_device(torch):
             "name": name, "smi": smi_line}
 
 
+def _sass_counts(nvcc: str, lib_path: str):
+    """Per wgmma-attention kernel in the built library, how many tensor-core
+    (HGMMA) and TMA-load (UTMALDG) instructions its machine code holds; None
+    where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[:300]}")
+    counts = {}
+    for chunk in out.stdout.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "attn_wgmma_kernel" in name:
+            counts[name] = (chunk.count("HGMMA"), chunk.count("UTMALDG"))
+    return counts
+
+
 @phase("build")
 def phase_build():
     from oryon_tpu_torch.ops.cuda import _lib
@@ -178,7 +225,34 @@ def phase_build():
              if "registers" in ln or "Compiling entry" in ln]
     for ln in ptxas:
         print(f"    ptxas: {ln}")
-    return {"line": f"{info['path']} (nvcc {info['seconds']:.1f} s)"}
+    line = f"{info['path']} (nvcc {info['seconds']:.1f} s)"
+    sass = _sass_counts(_lib._nvcc(), info["path"])
+    if sass is not None:
+        # K1 and K5 at head dim 64: both instantiations issue wgmma and TMA loads
+        check(len(sass) == 2 and all(h > 0 and t > 0 for h, t in sass.values()),
+              f"wgmma kernels in the library (HGMMA, UTMALDG counts): {sass}")
+        line += "; wgmma kernels' SASS (HGMMA, UTMALDG): " + ", ".join(
+            f"{h}/{t}" for h, t in sass.values())
+    return {"line": line}
+
+
+# Edges of the wgmma kernel's tiling (64 query rows a warpgroup, key tiles of
+# 64), at the tower's width: (images, L, head dim, first padded key, keys 0-63
+# masked too).  The head-dim-32 case runs the WMMA kernel.
+K1_EDGES = (("L=640 unpadded", 2, 640, 64, 640, False), ("L=65", 2, 65, 64, 65, False),
+            ("L=1", 2, 1, 64, 1, False), ("B=1", 1, 577, 64, 560, False),
+            ("masked leading tile", 2, 640, 64, 577, True))
+K1_OTHER_HD = ("hd=32", 2, 577, 32, 560, False)
+
+
+def _k1_case(torch, mha_lanes, g, B, L, hd, real, lead):
+    qkv = torch.randn((B, L, 3 * K1_HEADS * hd), generator=g, device=DEVICE).to(torch.bfloat16)
+    kmask = torch.where(torch.arange(L, device=DEVICE) < real, 0.0, -1e9)
+    if lead:
+        kmask[:64] = -1e9
+    scale = hd ** -0.5
+    return (mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale),
+            mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale))
 
 
 @phase("k1")
@@ -189,20 +263,33 @@ def phase_k1(torch, iters):
     qkv = torch.randn(K1_SHAPE, generator=g, device=DEVICE).to(torch.bfloat16)
     kmask = torch.where(torch.arange(L, device=DEVICE) < K1_REAL, 0.0, -1e9)
     scale = (C3 // 3 // K1_HEADS) ** -0.5
-    got = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
+
+    def kernel():
+        return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
+    got = kernel()
     ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
     # bf16 inputs/outputs with f32 (kernel) vs bf16-rounded (plain) logits
     res = {"err": compare(torch, got, ref, "K1")}
+    same_twice(torch, kernel, "K1")
+    edge_err = max(compare(torch, *_k1_case(torch, mha_lanes, g, *case), f"K1 {name}")
+                   for name, *case in K1_EDGES)
+    name, *case = K1_OTHER_HD
+    other_err = compare(torch, *_k1_case(torch, mha_lanes, g, *case), f"K1 {name}")
     mask16 = kmask.to(torch.bfloat16)[None, None, None, :]
-    res.update(timed(lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale),
+    res.update(timed(kernel,
                      lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
                      lambda: sdpa_packed(torch, qkv, mask16, K1_HEADS), iters))
+    res["host_us"] = host_us(kernel)
     # two L x L x hd products per (image, head); keys behind the mask count,
     # the function multiplies them too
     res.update(bound(nbytes(qkv, kmask, got),
                      {"bf16": 4 * B * K1_HEADS * L * L * (C3 // 3 // K1_HEADS)}))
     res["line"] = (f"qkv {list(K1_SHAPE)} bf16, max abs err {res['err']:.3e} "
-                   f"(tol {KERNEL_TOL}), {times_txt(res)}")
+                   f"(tol {KERNEL_TOL}), {times_txt(res)}, kernel / library "
+                   f"{res['ms'] / res['library_ms']:.2f}; edges "
+                   f"({', '.join(n for n, *_ in K1_EDGES)}) max abs err {edge_err:.3e}, "
+                   f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise "
+                   f"equal; host {res['host_us']:.1f} us per wrapper call")
     return res
 
 
@@ -238,6 +325,28 @@ def phase_k1i8(torch, iters):
     return res
 
 
+# The same edges for K5: (images, L, head dim, real tokens or None = no
+# segment ids, keys 0-63 a segment of their own).
+K5_EDGES = (("L=640 unpadded", 2, 640, 64, None, False), ("L=65", 2, 65, 64, None, False),
+            ("L=1", 2, 1, 64, None, False), ("B=1", 1, 640, 64, 577, False),
+            ("leading tile its own segment", 2, 640, 64, 577, True))
+K5_OTHER_HD = ("D=32", 2, 640, 32, 577, False)
+
+
+def _k5_case(torch, flash, g, B, L, D, real, lead):
+    q, k, v = (torch.randn((B, K1_HEADS, L, D), generator=g, device=DEVICE).to(torch.bfloat16)
+               for _ in range(3))
+    scale = D ** -0.5
+    if real is None:
+        return flash.flash_mha(q, k, v, scale), flash.flash_mha_plain(q, k, v, scale)
+    seg = (torch.arange(L, device=DEVICE) < real).to(torch.int32)
+    if lead:
+        seg[:64] = 2
+    seg = seg.expand(B, L).contiguous()
+    return (flash.flash_mha_padded(q, k, v, scale, seg),
+            flash.flash_mha_plain(q, k, v, scale, seg))
+
+
 @phase("k5")
 def phase_k5(torch, iters):
     from oryon_tpu_torch.ops.cuda import flash
@@ -249,24 +358,37 @@ def phase_k5(torch, iters):
                for _ in range(3))
     seg = (torch.arange(L, device=DEVICE) < real).to(torch.int32).expand(B, L).contiguous()
     scale = D ** -0.5
-    got = flash.flash_mha_padded(q, k, v, scale, seg)
+
+    def kernel():
+        return flash.flash_mha_padded(q, k, v, scale, seg)
+    got = kernel()
     ref = flash.flash_mha_plain(q, k, v, scale, seg)
     res = {"err": compare(torch, got, ref, "K5 with segments")}
+    same_twice(torch, kernel, "K5")
     # without segments, at the ragged unpadded length
     qr, kr, vr = (t[:, :, :real].contiguous() for t in (q, k, v))
     ragged = compare(torch, flash.flash_mha(qr, kr, vr, scale),
                      flash.flash_mha_plain(qr, kr, vr, scale), f"K5 at L={real}")
+    edge_err = max(compare(torch, *_k5_case(torch, flash, g, *case), f"K5 {name}")
+                   for name, *case in K5_EDGES)
+    name, *case = K5_OTHER_HD
+    other_err = compare(torch, *_k5_case(torch, flash, g, *case), f"K5 {name}")
     same = (seg[:, :, None] == seg[:, None, :])[:, None]
-    res.update(timed(lambda: flash.flash_mha_padded(q, k, v, scale, seg),
+    res.update(timed(kernel,
                      lambda: flash.flash_mha_plain(q, k, v, scale, seg),
                      lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same),
                      iters))
+    res["host_us"] = host_us(kernel)
     # only pairs of one segment are multiplied: real x real + padding x padding
     pairs = real * real + (L - real) * (L - real)
     res.update(bound(nbytes(q, k, v, seg, got), {"bf16": 4 * B * H * pairs * D}))
     res["line"] = (f"q, k, v {[B, H, L, D]} bf16, {real} real tokens: max abs err "
                    f"{res['err']:.3e}, unsegmented L={real} {ragged:.3e} (tol "
-                   f"{KERNEL_TOL}), {times_txt(res)}")
+                   f"{KERNEL_TOL}), {times_txt(res)}, kernel / library "
+                   f"{res['ms'] / res['library_ms']:.2f}; edges "
+                   f"({', '.join(n for n, *_ in K5_EDGES)}) max abs err {edge_err:.3e}, "
+                   f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise "
+                   f"equal; host {res['host_us']:.1f} us per wrapper call")
     return res
 
 

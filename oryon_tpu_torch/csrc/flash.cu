@@ -16,16 +16,20 @@
 // chip.  The head-split transposes that feed this layout are the caller's and
 // cost device-memory passes that K1 avoids; that is why "fused" is the default.
 //
-// Design: the streaming kernel of attn_stream.cuh (one block per 64 query
-// rows of one head, online softmax, WMMA bf16 products) with row stride D and
-// head stride L*D, and the segment comparison in place of the additive mask.
-// A row whose first key tiles are all masked keeps exact zero weights until
-// its first visible key (the running max is guarded against -inf - -inf).
+// Design: at D = 64 the wgmma kernel of attn_wgmma.cuh (S, P and O in
+// registers, K and V tiles through a TMA ring; one tensor map each for q, k
+// and v over [B*H, L, 64]), at D = 16, 32 and 128 the WMMA streaming kernel
+// of attn_stream.cuh; both with the segment comparison in place of the
+// additive mask.  A row whose first key tiles are all masked keeps exact zero
+// weights until its first visible key (the running max is guarded against
+// -inf - -inf).
 
 #include "attn_stream.cuh"
+#include "attn_wgmma.cuh"
 
-// q, k, v, out [B, H, L, D] bf16 contiguous; seg [B, L] int32 or null.
-// Returns a cudaError_t code (0 on success).
+// q, k, v, out [B, H, L, D] bf16 contiguous, D in {16, 32, 128} (the WMMA
+// kernel); seg [B, L] int32 or null.  Returns a cudaError_t code (0 on
+// success).
 extern "C" int oryon_flash_mha_bf16(const void* q, const void* k, const void* v,
                                     const void* seg, void* out, int B, int H,
                                     int L, int D, float sm_scale,
@@ -45,4 +49,16 @@ extern "C" int oryon_flash_mha_bf16(const void* q, const void* k, const void* v,
   p.heads = H;
   p.scale = sm_scale;
   return int(launch_hd<kSegments>(D, p, B, static_cast<cudaStream_t>(stream)));
+}
+
+// The same at D = 64 (the wgmma kernel); q, k and v 16-byte aligned.
+extern "C" int oryon_flash_mha_wgmma_bf16(const void* q, const void* k,
+                                          const void* v, const void* seg,
+                                          void* out, int B, int H, int L, int D,
+                                          float sm_scale, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || D != oryon_attn_wg::kHD) {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(oryon_attn_wg::launch_split(q, k, v, seg, out, B, H, L, sm_scale,
+                                         static_cast<cudaStream_t>(stream)));
 }

@@ -12,21 +12,26 @@
 // matrix of one head in VMEM; a Hopper SM has at most 227 KB of shared
 // memory, so that does not carry over.
 //
-// Design: flash-attention style streaming.  One block of 4 warps owns 64
-// query rows of one head of one image (grid = query tiles x heads x batch)
-// and walks the keys in tiles of 64, reading K and V straight from the packed
-// rows (row stride 3C; columns C + h*hd and 2C + h*hd), so no q/k/v split or
-// head transpose ever touches device memory.  Each warp owns 16 query rows:
-// S = Q K^T and O += P V run on the tensor cores through WMMA (bf16 inputs,
-// f32 accumulation); the softmax is online (running max and running sum per
-// row, in f32), and O is kept in f32 in shared memory and rescaled by
-// exp(m_old - m_new) before each P V product.  As in the TPU kernel the
-// exponentials are rounded to bf16 before the P V product and the row sum
-// adds the rounded values; normalisation is deferred to the end.  L need not
-// be aligned: keys at or past L get -inf, query rows past L are not written.
-// The additive key mask (0 for real keys, -1e9 for padding) is applied in f32.
-// Simple first: no TMA, no wgmma, no double buffering (later work).  The
-// device code lives in attn_stream.cuh, shared with flash.cu.
+// Design, head dimension 64 (the ViT-L tower), bf16 logits: the wgmma kernel
+// of attn_wgmma.cuh.  One warpgroup owns 64 query rows of one head of one
+// image; S, P and O stay in registers (wgmma m64n64k16, P as the register A
+// operand, V through the transposed-B descriptor); a producer warp streams K
+// and V tiles through a ring of shared-memory stages with TMA, straight from
+// the packed rows (one tensor map over [B, L, 3C]; columns h*64, C + h*64
+// and 2C + h*64), so no q/k/v split or head transpose ever touches device
+// memory and the zero fill past row L keeps a tile out of the next image.
+//
+// Design, every other head dimension (16, 32, 128) and K1-i8: the WMMA kernel
+// of attn_stream.cuh, flash-attention style streaming with one block of 4
+// warps per 64 query rows, keys in tiles of 64, S, P and O passed through
+// shared memory, no overlap of loads and products.
+//
+// Both keep the TPU kernel's arithmetic: f32 online softmax (running max and
+// sum per row), exponentials rounded to bf16 before the P V product, the row
+// sum adding the rounded values, normalisation deferred to the end.  L need
+// not be aligned: keys at or past L get -inf, query rows past L are not
+// written.  The additive key mask (0 for real keys, -1e9 for padding) is
+// applied in f32.
 //
 // K1-i8: q * scale and k are quantised to int8 by the absmax of the whole
 // [L, hd] slab of one (image, head), but that head is spread over L / 64
@@ -39,6 +44,7 @@
 // in the softmax's first pass.  P V stays bf16.
 
 #include "attn_stream.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -110,8 +116,9 @@ AttnParams packed_params(const void* qkv, const void* kmask, void* out, int L,
 
 }  // namespace
 
-// qkv [B, L, 3C] bf16, kmask [L] f32, out [B, L, C] bf16, all contiguous.
-// Returns a cudaError_t code (0 on success).
+// qkv [B, L, 3C] bf16, kmask [L] f32, out [B, L, C] bf16, all contiguous;
+// C / heads in {16, 32, 128} (the WMMA kernel).  Returns a cudaError_t code
+// (0 on success).
 extern "C" int oryon_fused_mha_lanes_bf16(const void* qkv, const void* kmask,
                                           void* out, int B, int L, int C,
                                           int heads, float scale,
@@ -122,6 +129,18 @@ extern "C" int oryon_fused_mha_lanes_bf16(const void* qkv, const void* kmask,
   const AttnParams p = packed_params(qkv, kmask, out, L, C, heads, scale);
   return int(launch_hd<kKeyMask>(C / heads, p, B,
                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The same at C / heads = 64 (the wgmma kernel); qkv 16-byte aligned.
+extern "C" int oryon_fused_mha_lanes_wgmma_bf16(const void* qkv,
+                                                const void* kmask, void* out,
+                                                int B, int L, int C, int heads,
+                                                float scale, void* stream) {
+  if (B <= 0 || L <= 0 || heads <= 0 || C != heads * oryon_attn_wg::kHD) {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(oryon_attn_wg::launch_packed(qkv, kmask, out, B, L, C, heads, scale,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // The same with int8 logits.  absmax: [B, heads, 2] f32 scratch, written by

@@ -35,8 +35,10 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes; every one returns a cudaError_t as int
 SIGNATURES = {
     "oryon_fused_mha_lanes_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_fused_mha_lanes_wgmma_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_i8qk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_flash_mha_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_flash_mha_wgmma_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_packed_window_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _F, _P],
     "oryon_band_window_attention_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -7,7 +7,11 @@ segment ids).  Query i of image b sees key j only where
 ``seg[b, i] == seg[b, j]``; padding rows attend among themselves, stay finite
 and are dropped by the caller.  The CUDA source is
 ``oryon_tpu_torch/csrc/flash.cu``; the kernel masks a ragged last tile itself,
-so ``flash_mha`` pads nothing.
+so ``flash_mha`` pads nothing.  Which kernel serves which shape
+(``kernel_entry``): D = 64 (the ViT-L tower) the wgmma kernel of
+``csrc/attn_wgmma.cuh`` (S, P and O in registers, K and V tiles through a TMA
+ring), entry ``oryon_flash_mha_wgmma_bf16``; D = 16, 32 and 128 the WMMA
+streaming kernel of ``csrc/attn_stream.cuh``, entry ``oryon_flash_mha_bf16``.
 
 Both functions launch the kernel for CUDA tensors and run the plain PyTorch
 version (``flash_mha_plain``) for CPU tensors.
@@ -37,8 +41,31 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhlm,bhmd->bhld", p, v)
 
 
-def _flash(q, k, v, sm_scale: float, seg: Optional[torch.Tensor]) -> torch.Tensor:
+def kernel_entry(head_dim: int) -> str:
+    """The C entry point that serves this head dimension (see the module
+    docstring)."""
+    if head_dim not in (16, 32, 64, 128):
+        raise ValueError(f"head dim {head_dim} not in (16, 32, 64, 128)")
+    return "oryon_flash_mha_wgmma_bf16" if head_dim == 64 else "oryon_flash_mha_bf16"
+
+
+def _launch(lib, q, k, v, sm_scale: float, seg: Optional[torch.Tensor],
+            stream: int) -> torch.Tensor:
+    """Allocate the output, call the entry point for this shape on ``lib``
+    and count the launch."""
     global launches
+    B, H, L, D = q.shape
+    fn = getattr(lib, kernel_entry(D))
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if seg is None else seg.data_ptr(), out.data_ptr(), B, H, L, D,
+             float(sm_scale), stream)
+    _lib.check(err, "flash_mha")
+    launches += 1
+    return out
+
+
+def _flash(q, k, v, sm_scale: float, seg: Optional[torch.Tensor]) -> torch.Tensor:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} are not three [B, H, L, D]")
@@ -55,17 +82,9 @@ def _flash(q, k, v, sm_scale: float, seg: Optional[torch.Tensor]) -> torch.Tenso
         raise TypeError("kernel takes bf16 q, k, v and int32 seg")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, k, v and seg must be contiguous")
-    if D not in (16, 32, 64, 128):
-        raise ValueError(f"head dim {D} not in (16, 32, 64, 128)")
-    out = torch.empty_like(q)
-    lib = _lib.library()
-    err = lib.oryon_flash_mha_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if seg is None else seg.data_ptr(), out.data_ptr(), B, H, L, D,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _lib.check(err, "flash_mha")
-    launches += 1
-    return out
+    kernel_entry(D)   # raises on a head dim without a kernel
+    return _launch(_lib.library(), q, k, v, sm_scale, seg,
+                   torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

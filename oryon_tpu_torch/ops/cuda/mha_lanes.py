@@ -7,7 +7,16 @@ inside each), so no q/k/v split or head transpose is materialised.  The CUDA
 source is ``oryon_tpu_torch/csrc/mha_lanes.cu``.
 
 ``fused_mha_lanes_qkv`` launches the kernel for a CUDA tensor and runs the
-plain PyTorch version (``reference_mha``) for a CPU tensor.
+plain PyTorch version (``reference_mha``) for a CPU tensor.  Which kernel
+serves which shape (``kernel_entry``):
+
+- head dimension 64 with bf16 logits (K1 on the ViT-L tower): the wgmma
+  kernel of ``csrc/attn_wgmma.cuh`` (S, P and O in registers, K and V tiles
+  through a TMA ring), entry ``oryon_fused_mha_lanes_wgmma_bf16``;
+- head dimensions 16, 32 and 128 with bf16 logits: the WMMA streaming kernel
+  of ``csrc/attn_stream.cuh``, entry ``oryon_fused_mha_lanes_bf16``;
+- ``qk_int8=True`` (K1-i8) at every head dimension: the WMMA streaming
+  kernel with int8 logits, entry ``oryon_fused_mha_lanes_i8qk_bf16``.
 
 ``qk_int8=True`` forms the logits from int8 codes: per (image, head),
 ``q * scale`` and ``k`` are quantised by the absmax of their whole [L, hd]
@@ -61,6 +70,42 @@ def reference_mha(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     return o.transpose(1, 2).reshape(B, L, C)
 
 
+def kernel_entry(head_dim: int, qk_int8: bool) -> str:
+    """The C entry point that serves this head dimension (see the module
+    docstring)."""
+    if head_dim not in (16, 32, 64, 128):
+        raise ValueError(f"head dim {head_dim} not in (16, 32, 64, 128)")
+    if qk_int8:
+        return "oryon_fused_mha_lanes_i8qk_bf16"
+    if head_dim == 64:
+        return "oryon_fused_mha_lanes_wgmma_bf16"
+    return "oryon_fused_mha_lanes_bf16"
+
+
+def _launch(lib, qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
+            scale: float, qk_int8: bool, stream: int) -> torch.Tensor:
+    """Allocate the output, call the entry point for this shape on ``lib``
+    and count the launch."""
+    global launches, launches_i8
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    fn = getattr(lib, kernel_entry(C // heads, qk_int8))
+    out = torch.empty((B, L, C), dtype=qkv.dtype, device=qkv.device)
+    if qk_int8:
+        # per-(image, head) max|q * scale| and max|k|, written by the pre-pass
+        absmax = torch.empty((B, heads, 2), dtype=torch.float32, device=qkv.device)
+        err = fn(qkv.data_ptr(), kmask.data_ptr(), absmax.data_ptr(), out.data_ptr(),
+                 B, L, C, heads, float(scale), stream)
+        _lib.check(err, "fused_mha_lanes_qkv(qk_int8=True)")
+        launches_i8 += 1
+    else:
+        err = fn(qkv.data_ptr(), kmask.data_ptr(), out.data_ptr(), B, L, C, heads,
+                 float(scale), stream)
+        _lib.check(err, "fused_mha_lanes_qkv")
+        launches += 1
+    return out
+
+
 def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
                         scale: float, qk_int8: bool = False) -> torch.Tensor:
     """softmax(q_h k_h^T * scale + kmask) v_h for every head h; with
@@ -71,7 +116,6 @@ def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     CUDA device qkv must be bf16 and contiguous with C / heads in
     {16, 32, 64, 128}; L needs no alignment.
     """
-    global launches, launches_i8
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % heads:
         raise ValueError(f"qkv {tuple(qkv.shape)} is not [B, L, 3C] with "
                          f"C divisible by heads={heads}")
@@ -89,23 +133,6 @@ def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
                         f"{qkv.dtype} and {kmask.dtype}")
     if not (qkv.is_contiguous() and kmask.is_contiguous()):
         raise ValueError("qkv and kmask must be contiguous")
-    if C // heads not in (16, 32, 64, 128):
-        raise ValueError(f"head dim {C // heads} not in (16, 32, 64, 128)")
-    out = torch.empty((B, L, C), dtype=qkv.dtype, device=qkv.device)
-    lib = _lib.library()
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    if qk_int8:
-        # per-(image, head) max|q * scale| and max|k|, written by the pre-pass
-        absmax = torch.empty((B, heads, 2), dtype=torch.float32, device=qkv.device)
-        err = lib.oryon_fused_mha_lanes_i8qk_bf16(
-            qkv.data_ptr(), kmask.data_ptr(), absmax.data_ptr(), out.data_ptr(),
-            B, L, C, heads, float(scale), stream)
-        _lib.check(err, "fused_mha_lanes_qkv(qk_int8=True)")
-        launches_i8 += 1
-    else:
-        err = lib.oryon_fused_mha_lanes_bf16(
-            qkv.data_ptr(), kmask.data_ptr(), out.data_ptr(), B, L, C, heads,
-            float(scale), stream)
-        _lib.check(err, "fused_mha_lanes_qkv")
-        launches += 1
-    return out
+    kernel_entry(C // heads, qk_int8)   # raises on a head dim without a kernel
+    return _launch(_lib.library(), qkv, kmask, heads, scale, qk_int8,
+                   torch.cuda.current_stream(qkv.device).cuda_stream)

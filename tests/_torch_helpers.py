@@ -67,3 +67,57 @@ class pallas_interpret:
 
     def __exit__(self, *exc):
         self.pl.pallas_call = self.orig
+
+
+def tiled_attention_model(q, k, v, scale: float, kmask=None, seg=None,
+                          tile: int = 64, guard: bool = True):
+    """Pure-PyTorch model of the arithmetic of the wgmma attention kernel
+    (``oryon_tpu_torch/csrc/attn_wgmma.cuh``) on [B, H, L, D] torch tensors.
+
+    Keys are walked in tiles of ``tile``; the logits are f32 sums of the
+    input-dtype products, taken to log2 units by ``scale * log2(e)`` (the
+    additive ``kmask`` [L] likewise, or ``seg`` [B, L] masks pairs of
+    different segments with -inf); the running row max and row sum are f32;
+    the weights ``exp2(s - m)`` are rounded to the input dtype before the
+    P V product and the row sum adds the rounded values; O is rescaled by
+    ``exp2(m_old - m_new)`` and normalised once at the end.  A row that has
+    seen no live key yet subtracts 0 instead of its -inf max (``guard``), so
+    its weights stay exactly 0 instead of exp2(-inf + inf) = NaN.
+    """
+    import math
+
+    import torch
+
+    B, H, L, D = q.shape
+    log2e = math.log2(math.e)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = torch.zeros(B, H, L, D)
+    m_run = torch.full((B, H, L, 1), float("-inf"))
+    l_run = torch.zeros(B, H, L, 1)
+    for k0 in range(0, L, tile):
+        k1 = min(k0 + tile, L)
+        s = torch.einsum("bhld,bhmd->bhlm", qf, kf[:, :, k0:k1]) * (scale * log2e)
+        if kmask is not None:
+            s = s + (kmask.float()[k0:k1] * log2e)[None, None, None, :]
+        if seg is not None:
+            same = seg[:, :, None] == seg[:, None, k0:k1]
+            s = s.masked_fill(~same[:, None], float("-inf"))
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new) \
+            if guard else m_new
+        corr = torch.exp2(m_run - m_safe)
+        p = torch.exp2(s - m_safe).to(q.dtype)
+        l_run = l_run * corr + p.float().sum(dim=-1, keepdim=True)
+        o = o * corr + torch.einsum("bhlm,bhmd->bhld", p.float(), vf[:, :, k0:k1])
+        m_run = m_new
+    return (o / l_run).to(q.dtype)
+
+
+def tiled_attention_model_packed(qkv, kmask, heads: int, scale: float, **kw):
+    """``tiled_attention_model`` on the lane-packed [B, L, 3C] layout of K1."""
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    q, k, v = (t.reshape(B, L, heads, C // heads).transpose(1, 2)
+               for t in qkv.split(C, dim=-1))
+    out = tiled_attention_model(q, k, v, scale, kmask=kmask, **kw)
+    return out.transpose(1, 2).reshape(B, L, C)

@@ -21,24 +21,43 @@ def _unit(x):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
+# B, L, heads, head dim, first padded key, keys 0-63 masked too.  Head dim 64
+# runs the wgmma kernel, 16 / 32 / 128 the WMMA kernel.
+MHA_CASES = [(2, 256, 4, 16, 200, False),
+             (3, 577, 16, 64, 577, False),
+             (2, 130, 8, 32, 100, False),
+             (1, 70, 2, 128, 64, False),
+             (1, 577, 16, 64, 560, False),    # one image, ragged L, pad mask
+             (2, 640, 4, 64, 640, False),     # whole tiles, nothing masked
+             (2, 640, 4, 64, 577, True),      # a fully masked leading key tile
+             (2, 65, 2, 64, 65, False),       # one live row in the second tile
+             (1, 1, 2, 64, 1, False),
+             (2, 63, 2, 64, 40, False),       # L below one tile
+             (2, 640, 4, 32, 577, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,H,hd,real", [(2, 256, 4, 16, 200),
-                                           (3, 577, 16, 64, 577),
-                                           (2, 130, 8, 32, 100),
-                                           (1, 70, 2, 128, 64)])
-def test_mha_kernel_matches_plain(cuda, B, L, H, hd, real):
+@pytest.mark.parametrize("B,L,H,hd,real,lead", MHA_CASES)
+def test_mha_kernel_matches_plain(cuda, B, L, H, hd, real, lead):
     """K1 vs its plain version at bf16, unit-variance inputs, pad keys
     masked at -1e9; tolerance 2e-2 (bf16 inputs and outputs, f32 vs bf16
-    logits in the plain version)."""
+    logits in the plain version).  Two launches on the same inputs give
+    bitwise the same output."""
     from oryon_tpu_torch.ops.cuda import mha_lanes
 
     rs = np.random.RandomState(0)
     q = torch.from_numpy(rs.randn(B, L, 3 * H * hd).astype(np.float32))
     q = q.to(cuda, torch.bfloat16)
-    m = torch.where(torch.arange(L) < real, 0.0, -1e9).to(cuda)
+    m = torch.where(torch.arange(L) < real, 0.0, -1e9)
+    if lead:
+        m[:64] = -1e9
+    m = m.to(cuda)
     got = mha_lanes.fused_mha_lanes_qkv(q, m, H, hd ** -0.5)
+    again = mha_lanes.fused_mha_lanes_qkv(q, m, H, hd ** -0.5)
     ref = mha_lanes.reference_mha(q, m, H, hd ** -0.5)
     torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
 
 
@@ -90,28 +109,46 @@ def test_mha_int8_kernel_matches_plain(cuda, B, L, H, hd, real):
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
 
 
+# B, heads, L, head dim, real tokens (None = no segment ids), keys 0-63 a
+# segment of their own.  Head dim 64 runs the wgmma kernel.
+FLASH_CASES = [(2, 4, 256, 16, 200, False),
+               (1, 16, 640, 64, 577, False),
+               (3, 2, 130, 32, 100, False),
+               (1, 2, 70, 128, None, False),
+               (2, 8, 577, 64, None, False),
+               (2, 4, 640, 64, None, False),   # whole tiles, no padding
+               (2, 4, 640, 64, 577, True),     # a leading key tile no other row sees
+               (2, 2, 65, 64, None, False),
+               (1, 2, 1, 64, None, False),
+               (2, 2, 63, 64, 40, False),
+               (2, 4, 640, 128, 577, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,L,D,real", [(2, 4, 256, 16, 200),
-                                          (1, 16, 640, 64, 577),
-                                          (3, 2, 130, 32, 100),
-                                          (1, 2, 70, 128, None),
-                                          (2, 8, 577, 64, None)])
-def test_flash_kernel_matches_plain(cuda, B, H, L, D, real):
+@pytest.mark.parametrize("B,H,L,D,real,lead", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, B, H, L, D, real, lead):
     """K5 vs its plain version, with segment ids (``real`` tokens, the rest
-    padding that attends among itself) and without (ragged L); 2e-2 at bf16."""
+    padding that attends among itself) and without (ragged L); 2e-2 at bf16.
+    Two launches on the same inputs give bitwise the same output."""
     from oryon_tpu_torch.ops.cuda import flash
 
     rs = np.random.RandomState(3)
     q, k, v = (_bf16(rs, B, H, L, D, device=cuda) for _ in range(3))
     if real is None:
         got = flash.flash_mha(q, k, v, D ** -0.5)
+        again = flash.flash_mha(q, k, v, D ** -0.5)
         ref = flash.flash_mha_plain(q, k, v, D ** -0.5)
     else:
-        seg = (torch.arange(L) < real).to(torch.int32).expand(B, L).contiguous().to(cuda)
+        seg = (torch.arange(L) < real).to(torch.int32)
+        if lead:
+            seg[:64] = 2
+        seg = seg.expand(B, L).contiguous().to(cuda)
         got = flash.flash_mha_padded(q, k, v, D ** -0.5, seg)
+        again = flash.flash_mha_padded(q, k, v, D ** -0.5, seg)
         ref = flash.flash_mha_plain(q, k, v, D ** -0.5, seg)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
 
 

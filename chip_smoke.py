@@ -7,18 +7,28 @@
 
 Phases, each printing one line with its result and its time:
   1. device    the card (torch and nvidia-smi); fails without CUDA
-  2. build     nvcc builds the kernels from oryon_tpu_torch/csrc/
+  2. build     nvcc builds the kernels from oryon_tpu_torch/csrc/; the
+               machine code of the wgmma kernels holds tensor-core (HGMMA;
+               IGMMA for K1-i8's int8 logits) and TMA-load instructions
   3. k1        fused attention kernel (wgmma, head dim 64) vs its plain
                version at the ViT-L shape and at the edges of its tiling
                (L = 640, 65, 1, one image, a fully masked leading key tile),
                one head-dim-32 case on the WMMA kernel, two launches bitwise
                equal, and the host time of one wrapper call
-  4. k1i8      the same with int8 logits, at the padded ViT-L shape
+  4. k1i8      the same with int8 logits (int8 wgmma behind a quantising
+               pre-pass) at the padded ViT-L shape and the same edges; the
+               pre-pass alone gives the plain version's absmax and int8 codes
+               exactly; pre-pass and attention kernel timed apart
   5. k5        flash attention on [B, H, L, D] with segment ids, the same
                edges and a head-dim-32 case
   6. k3, k4    Swin window attention, packed windows and map-level, at both
                Swin-B stages with a shifted-window mask in the bias
-  7. k2        masked-argmin kernel vs its plain version, serving shape
+  7. k2        masked-argmin kernels vs their plain version at the serving
+               shape: fp32 (CUDA cores) and bf16 (compacting pre-pass + wgmma),
+               40% and 95% of the targets excluded, ragged sizes, pairs with
+               all / all but one / no target excluded, duplicated targets; the
+               pre-pass against torch.nonzero; pre-pass and main kernel timed
+               apart
   8. register  Kabsch, RANSAC, PointDSC and ICP recover a known rigid
                transform in full f32 (catches TF32 in the pose math)
   9. serve     full_oryon(quant="int8") + PointDSC + ICP behind
@@ -57,7 +67,7 @@ KERNEL_TOL = 2e-2                 # bf16 outputs: about one ulp at |x| in [2, 4)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 ROT_TOL, TRANS_TOL = 1e-3, 1e-4   # registration: rad, m
-TIMED_LAUNCHES = 20               # per kernel timing run (K2 uses a quarter)
+TIMED_LAUNCHES = 20               # per kernel timing run (K2's CUDA-core kernel: 3)
 TIMED_BATCHES = 3                 # warm B=8 batches timed for pairs/s
 DEVICE = "cuda"                   # the CPU rehearsal sets "cpu"
 
@@ -196,10 +206,13 @@ def phase_device(torch):
             "name": name, "smi": smi_line}
 
 
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")   # bf16 wgmma, int8 wgmma, TMA tile load
+
+
 def _sass_counts(nvcc: str, lib_path: str):
-    """Per wgmma-attention kernel in the built library, how many tensor-core
-    (HGMMA) and TMA-load (UTMALDG) instructions its machine code holds; None
-    where the toolkit has no cuobjdump."""
+    """Per wgmma kernel in the built library (the attention kernel's three
+    modes and the matcher's), how many instructions of each of SASS_OPS its
+    machine code holds; None where the toolkit has no cuobjdump."""
     import os
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -211,8 +224,8 @@ def _sass_counts(nvcc: str, lib_path: str):
     counts = {}
     for chunk in out.stdout.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "attn_wgmma_kernel" in name:
-            counts[name] = (chunk.count("HGMMA"), chunk.count("UTMALDG"))
+        if "attn_wgmma_kernel" in name or "match_wgmma_kernel" in name:
+            counts[name] = tuple(chunk.count(op) for op in SASS_OPS)
     return counts
 
 
@@ -228,11 +241,24 @@ def phase_build():
     line = f"{info['path']} (nvcc {info['seconds']:.1f} s)"
     sass = _sass_counts(_lib._nvcc(), info["path"])
     if sass is not None:
-        # K1 and K5 at head dim 64: both instantiations issue wgmma and TMA loads
-        check(len(sass) == 2 and all(h > 0 and t > 0 for h, t in sass.values()),
-              f"wgmma kernels in the library (HGMMA, UTMALDG counts): {sass}")
-        line += "; wgmma kernels' SASS (HGMMA, UTMALDG): " + ", ".join(
-            f"{h}/{t}" for h, t in sass.values())
+        # attn_wgmma_kernel<mode, ...>: 0 K1, 1 K5, 2 K1-i8 (int8 Q K^T, bf16
+        # P V); match_wgmma_kernel: K2.  All load their tiles by TMA.
+        want = {"K1": ("attn_wgmma_kernelILi0E", ("HGMMA",)),
+                "K5": ("attn_wgmma_kernelILi1E", ("HGMMA",)),
+                "K1-i8": ("attn_wgmma_kernelILi2E", ("HGMMA", "IGMMA")),
+                "K2": ("match_wgmma_kernel", ("HGMMA",))}
+        check(len(sass) == len(want), f"wgmma kernels in the library: {sorted(sass)}")
+        found = {}
+        for label, (key, ops) in want.items():
+            hits = [c for name, c in sass.items() if key in name]
+            check(len(hits) == 1, f"{label}: {len(hits)} kernels named {key} in the library")
+            got = dict(zip(SASS_OPS, hits[0]))
+            check(all(got[op] > 0 for op in ops + ("UTMALDG",))
+                  and (got["IGMMA"] == 0 or "IGMMA" in ops),
+                  f"{label}: SASS instruction counts {got}, expected {ops} and UTMALDG")
+            found[label] = hits[0]
+        line += f"; wgmma kernels' SASS ({'/'.join(SASS_OPS)}): " + ", ".join(
+            f"{label} {'/'.join(map(str, c))}" for label, c in found.items())
     return {"line": line}
 
 
@@ -245,14 +271,14 @@ K1_EDGES = (("L=640 unpadded", 2, 640, 64, 640, False), ("L=65", 2, 65, 64, 65, 
 K1_OTHER_HD = ("hd=32", 2, 577, 32, 560, False)
 
 
-def _k1_case(torch, mha_lanes, g, B, L, hd, real, lead):
+def _k1_case(torch, mha_lanes, g, B, L, hd, real, lead, qk_int8=False):
     qkv = torch.randn((B, L, 3 * K1_HEADS * hd), generator=g, device=DEVICE).to(torch.bfloat16)
     kmask = torch.where(torch.arange(L, device=DEVICE) < real, 0.0, -1e9)
     if lead:
         kmask[:64] = -1e9
     scale = hd ** -0.5
-    return (mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale),
-            mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale))
+    return (mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8),
+            mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale, qk_int8))
 
 
 @phase("k1")
@@ -302,26 +328,63 @@ def phase_k1i8(torch, iters):
     qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16)
     kmask = torch.where(torch.arange(L, device=DEVICE) < K1_SHAPE[1], 0.0, -1e9)
     scale = hd ** -0.5
-    got = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8=True)
+
+    def kernel():
+        return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8=True)
+    got = kernel()
     ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale, qk_int8=True)
     # same int8 codes and int32 sums on both sides (round half to even), so
     # what differs is K1's: bf16 exponentials and the deferred normalisation
     res = {"err": compare(torch, got, ref, "K1-i8")}
+    same_twice(torch, kernel, "K1-i8")
+    # the pre-pass on its own: absmax and codes are the plain version's, exactly
+    absmax, codes = mha_lanes._i8_scratch(qkv, K1_HEADS)
+    out = torch.empty_like(got)
+
+    def run(phases):
+        return lambda: mha_lanes.run_i8_phases(qkv, kmask, K1_HEADS, scale, phases,
+                                               absmax, codes, out)
+    run(mha_lanes.PREPASS)()
+    torch.cuda.synchronize()
+    ref_absmax, ref_codes = mha_lanes.quantise_qk_plain(qkv, K1_HEADS, scale)
+    check(bool(torch.equal(absmax, ref_absmax)), "K1-i8 pre-pass: absmax differs from the plain version's")
+    n_diff = int((codes != ref_codes).sum().item())
+    check(n_diff == 0, f"K1-i8 pre-pass: {n_diff} of {codes.numel()} int8 codes differ from "
+                       "the plain version's")
+    run(mha_lanes.ATTEND)()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(out, got)), "K1-i8: the phases run apart differ from the one call")
+    edge_err = max(compare(torch, *_k1_case(torch, mha_lanes, g, *case, qk_int8=True),
+                           f"K1-i8 {name}") for name, *case in K1_EDGES)
+    name, *case = K1_OTHER_HD
+    other_err = compare(torch, *_k1_case(torch, mha_lanes, g, *case, qk_int8=True),
+                        f"K1-i8 {name}")
     # how far the int8 logits move the output from the unquantised attention
     exact = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
     quant_err = (ref.float() - exact.float()).abs().max().item()
     res.update(timed(
-        lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8=True),
+        kernel,
         lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale, qk_int8=True),
         None, iters))   # no PyTorch call forms logits from per-head int8 codes
+    res["prepass_ms"] = cuda_ms(run(mha_lanes.PREPASS), iters)
+    res["attend_ms"] = cuda_ms(run(mha_lanes.ATTEND), iters)
+    res["k1_same_shape_ms"] = cuda_ms(
+        lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale), iters)
     mask16 = kmask.to(torch.bfloat16)[None, None, None, :]
     res["sdpa_ms"] = cuda_ms(lambda: sdpa_packed(torch, qkv, mask16, K1_HEADS), iters)
+    res["host_us"] = host_us(kernel)
     res.update(bound(nbytes(qkv, kmask, got),
                      {"int8": 2 * B * K1_HEADS * L * L * hd,
                       "bf16": 2 * B * K1_HEADS * L * L * hd}))
     res["line"] = (f"qkv {[B, L, C3]} bf16, max abs err {res['err']:.3e} (tol "
                    f"{KERNEL_TOL}), int8 vs unquantised plain {quant_err:.3e}, "
-                   f"{times_txt(res)}; unquantised SDPA {res['sdpa_ms']:.3f} ms")
+                   f"{times_txt(res)}; pre-pass {res['prepass_ms']:.4f} ms (absmax and "
+                   f"{codes.numel()} codes equal the plain version's), attention kernel "
+                   f"{res['attend_ms']:.4f} ms, K1 (bf16 logits) at this shape "
+                   f"{res['k1_same_shape_ms']:.4f} ms, unquantised SDPA {res['sdpa_ms']:.3f} ms; "
+                   f"edges ({', '.join(n for n, *_ in K1_EDGES)}) max abs err {edge_err:.3e}, "
+                   f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise equal; "
+                   f"host {res['host_us']:.1f} us per wrapper call")
     return res
 
 
@@ -489,6 +552,44 @@ def phase_k4(torch, iters):
     return _swin_phase(torch, iters, "K4", kernel, plain, lambda m: (m,), library)
 
 
+def _k2_gates(torch, mk, src, tgt, bad, prec: str, what: str) -> dict:
+    """masked_argmin in mode ``prec`` against the plain version: minima
+    within 1e-5 (+inf where the plain version has +inf), and an argmin may
+    differ only where the two plain distances (on the inputs as the mode
+    rounds them) lie within 1e-6 of each other.  Two launches bitwise equal."""
+    md, am = mk.masked_argmin(src, tgt, bad, prec)
+    md2, am2 = mk.masked_argmin(src, tgt, bad, prec)
+    pm, pa = mk.masked_argmin_plain(src, tgt, bad, prec)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(md, md2) and torch.equal(am, am2)), f"{what}: two launches differ")
+    finite = torch.isfinite(pm)
+    check(bool(torch.equal(torch.isfinite(md), finite)
+               and torch.equal(md[~finite], pm[~finite]) and (am[~finite] == 0).all()),
+          f"{what}: rows without a kept target are not (+inf, 0)")
+    err = (md[finite] - pm[finite]).abs().max().item() if bool(finite.any()) else 0.0
+    check(err < 1e-5, f"{what}: minima differ by {err} >= 1e-5")
+    s_r, t_r = mk._round_inputs(src, prec), mk._round_inputs(tgt, prec)
+    differ = torch.nonzero(am != pa).tolist()
+    for p, s in differ:
+        d = 0.5 * (1.0 - t_r[p] @ s_r[p, s])
+        check(not bool(bad[p, am[p, s]]), f"{what}: pair {p} row {s} chose an excluded target")
+        gap = abs((d[am[p, s]] - d[pa[p, s]]).item())
+        check(gap <= 1e-6, f"{what}: argmin differs at pair {p} row {s} without a near-tie "
+                           f"(plain distances {gap} apart)")
+    return {"err": err, "same": 1.0 - len(differ) / am.numel(), "min": md, "arg": am}
+
+
+def _blob_mask(torch, P, side, keep_frac):
+    """[P, side * side] bool, True = excluded: everything outside one square
+    blob per pair, as serving excludes what lies outside the object mask."""
+    w = int(round(side * keep_frac ** 0.5))
+    bad = torch.ones((P, side, side), dtype=torch.bool, device=DEVICE)
+    for p in range(P):
+        y, x = (17 * p) % (side - w), (29 * p) % (side - w)
+        bad[p, y:y + w, x:x + w] = False
+    return bad.reshape(P, -1)
+
+
 @phase("k2")
 def phase_k2(torch, iters):
     from oryon_tpu_torch.ops.cuda import match_kernel as mk
@@ -499,40 +600,90 @@ def phase_k2(torch, iters):
     src = unit(torch.randn(K2_PAIRS, K2_SRC, 32, generator=g, device=DEVICE))
     tgt = unit(torch.randn(K2_PAIRS, K2_TGT, 32, generator=g, device=DEVICE))
     bad = torch.rand(K2_PAIRS, K2_TGT, generator=g, device=DEVICE) < 0.4
-    out = {}
-    for prec in ("fp32", "bf16"):
-        md, am = mk.masked_argmin(src, tgt, bad, prec)
-        pm, pa = mk.masked_argmin_plain(src, tgt, bad, prec)
-        torch.cuda.synchronize()
-        same = am == pa
-        if prec == "fp32":
-            err = (md - pm).abs().max().item()
-            check(err < 1e-5, f"fp32 minima differ by {err} >= 1e-5")
-            # a differing argmin is allowed only where the two best plain
-            # distances lie within 1e-6 of each other
-            for p, s in torch.nonzero(~same).tolist():
-                d = 0.5 * (1.0 - tgt[p] @ src[p, s])
-                d = torch.where(bad[p], float("inf"), d)
-                two = torch.topk(d, 2, largest=False).values
-                check((two[1] - two[0]).item() <= 1e-6,
-                      f"fp32 argmin differs at pair {p} row {s} without a near-tie")
-            out["err"] = err
-            out["fp32_same"] = same.float().mean().item()
-        else:
-            out["bf16_same"] = same.float().mean().item()
-            check(out["bf16_same"] >= 0.99, f"bf16 argmins agree {out['bf16_same']:.4f} < 0.99")
+    fp32 = _k2_gates(torch, mk, src, tgt, bad, "fp32", "K2 fp32")
+    bf16 = _k2_gates(torch, mk, src, tgt, bad, "bf16", "K2 bf16")
+    check(bf16["same"] >= 0.99, f"bf16 argmins agree {bf16['same']:.4f} < 0.99")
+    out = {"err": fp32["err"], "fp32_same": fp32["same"], "bf16_err": bf16["err"],
+           "bf16_same": bf16["same"]}
+
+    # the pre-pass on its own, against torch.nonzero
+    scratch = mk._bf16_scratch(src, tgt)
+    o_min, o_arg = torch.empty_like(bf16["min"]), torch.empty_like(bf16["arg"])
+
+    def run(phases, mask):
+        return lambda: mk.run_bf16_phases(src, tgt, mask, phases, scratch, o_min, o_arg)
+    run(mk.COMPACT, bad)()
+    torch.cuda.synchronize()
+    tgt16, idx_map, counts = scratch[:3]
+    check(bool(torch.equal(counts, (~bad).sum(dim=1).to(torch.int32))),
+          "K2 pre-pass: counts differ from the number of kept targets")
+    for p in range(K2_PAIRS):
+        kept = torch.nonzero(~bad[p]).flatten()
+        check(bool(torch.equal(idx_map[p, :kept.numel()], kept.to(torch.int32))),
+              f"K2 pre-pass: index map of pair {p} differs from torch.nonzero")
+        check(bool(torch.equal(tgt16[p, :kept.numel()], tgt[p, kept].bfloat16())),
+              f"K2 pre-pass: compacted rows of pair {p} differ")
+    run(mk.REDUCE, bad)()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(o_min, bf16["min"]) and torch.equal(o_arg, bf16["arg"])),
+          "K2: the phases run apart differ from the one call")
+
+    # edges: S and N off the tiles; pair 0 all excluded, pair 1 one target
+    # kept, pair 2 none excluded, pair 3 its rows' best target three times
+    S_e, N_e = 5000, 36001
+    src_e = unit(torch.randn(4, S_e, 32, generator=g, device=DEVICE))
+    tgt_e = unit(torch.randn(4, N_e, 32, generator=g, device=DEVICE))
+    bad_e = torch.rand(4, N_e, generator=g, device=DEVICE) < 0.4
+    bad_e[0] = True
+    bad_e[1] = True
+    bad_e[1, 20011] = False
+    bad_e[2] = False
+    tgt_e[3, 9000:9600] = tgt_e[3, 700:1300]
+    tgt_e[3, N_e - 600:] = tgt_e[3, 700:1300]
+    bad_e[3, 700:1300] = bad_e[3, 9000:9600] = bad_e[3, N_e - 600:] = False
+    src_e[3, :600] = tgt_e[3, 700:1300]
+    edge = _k2_gates(torch, mk, src_e, tgt_e, bad_e, "bf16", "K2 bf16 edges")
+    check(bool(torch.isinf(edge["min"][0]).all() and (edge["arg"][0] == 0).all()),
+          "K2: a pair with every target excluded is not (+inf, 0)")
+    check(bool((edge["arg"][1] == 20011).all()), "K2: a pair with one kept target missed it")
+    check(bool(torch.equal(edge["arg"][3, :600],
+                           torch.arange(700, 1300, dtype=torch.int32, device=DEVICE))),
+          "K2: duplicated targets did not go to the lowest index")
+    _k2_gates(torch, mk, src_e, tgt_e, bad_e, "fp32", "K2 fp32 edges")
+
+    # the serving share: everything outside a blob of 5% excluded
+    blob = _blob_mask(torch, K2_PAIRS, 192, 0.05)
+    sparse = _k2_gates(torch, mk, src, tgt, blob, "bf16", "K2 bf16 blob mask")
+
     # no single PyTorch call computes a masked cosine argmin
     out.update(timed(lambda: mk.masked_argmin(src, tgt, bad, "bf16"),
-                     lambda: mk.masked_argmin_plain(src, tgt, bad, "bf16"),
-                     None, max(iters // 4, 3)))
+                     lambda: mk.masked_argmin_plain(src, tgt, bad, "bf16"), None, iters))
+    out["compact_ms"] = cuda_ms(run(mk.COMPACT, bad), iters)
+    out["reduce_ms"] = cuda_ms(run(mk.REDUCE, bad), iters)
+    out["fp32_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, bad, "fp32"), 3)
+    out["blob_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, blob, "bf16"), iters)
+    out["blob_compact_ms"] = cuda_ms(run(mk.COMPACT, blob), iters)
+    out["blob_reduce_ms"] = cuda_ms(run(mk.REDUCE, blob), iters)
+    out["host_us"] = host_us(lambda: mk.masked_argmin(src, tgt, bad, "bf16"), 50)
     # one product of 32 per source and non-excluded target, on bf16-rounded
     # inputs (the mode timed), so counted at the bf16 rate
     kept = int((~bad).sum().item())
-    out.update(bound(nbytes(src, tgt, bad, md, am), {"bf16": 2 * K2_SRC * kept * 32}))
+    out.update(bound(nbytes(src, tgt, bad, o_min, o_arg), {"bf16": 2 * K2_SRC * kept * 32}))
+    blob_bound = bound(nbytes(src, tgt, blob, o_min, o_arg),
+                       {"bf16": 2 * K2_SRC * int((~blob).sum().item()) * 32})
     out["line"] = (
         f"{K2_PAIRS} x [{K2_SRC}, 32] x [{K2_TGT}, 32], 40% excluded: fp32 min err "
         f"{out['err']:.2e}, argmins same {out['fp32_same']:.6f} (fp32) / "
-        f"{out['bf16_same']:.6f} (bf16); bf16 mode: {times_txt(out)}")
+        f"{out['bf16_same']:.6f} (bf16), bf16 min err {out['bf16_err']:.2e}; bf16 mode: "
+        f"{times_txt(out)}; pre-pass {out['compact_ms']:.4f} ms (map, rows and counts equal "
+        f"torch.nonzero's), main kernel {out['reduce_ms']:.4f} ms; fp32 mode (the CUDA-core "
+        f"kernel) {out['fp32_ms']:.3f} ms; 95% excluded "
+        f"(blob): {out['blob_ms']:.4f} ms (pre-pass {out['blob_compact_ms']:.4f}, main "
+        f"{out['blob_reduce_ms']:.4f}, bound {blob_bound['bound_ms']:.4f} "
+        f"{blob_bound['bound_by']}), argmins same {sparse['same']:.6f}; edges (S={S_e}, "
+        f"N={N_e}; all, all but one, none excluded; duplicates to the lowest index) min err "
+        f"{edge['err']:.2e}, argmins same {edge['same']:.6f}; two launches bitwise equal; "
+        f"host {out['host_us']:.1f} us per wrapper call")
     return out
 
 

@@ -5,10 +5,10 @@
 //                 K1-i8  the same with int8 logits (per-head absmax scales)
 //   flash.cu      K5     [B, H, L, D] rows, segment ids
 //
-// It serves K1 and K5 at head dimensions 16, 32 and 128 and K1-i8 at every
-// head dimension.  K1 and K5 at head dimension 64 (the ViT-L tower) run the
-// wgmma kernel of attn_wgmma.cuh instead, through C entry points of its own
-// that the Python wrappers choose by the head dimension.
+// It serves K1, K1-i8 and K5 at head dimensions 16, 32 and 128.  At head
+// dimension 64 (the ViT-L tower) all three run the wgmma kernel of
+// attn_wgmma.cuh instead, through C entry points of its own that the Python
+// wrappers choose by the head dimension.
 //
 // The three differ only in where a row of q, k, v and out lives (base pointer
 // plus batch, head and row strides, AttnParams) and in how a logit is formed
@@ -329,10 +329,7 @@ cudaError_t launch_hd(int hd, const AttnParams& p, int B, cudaStream_t stream) {
   switch (hd) {
     case 16: return launch<16, MODE>(p, B, stream);
     case 32: return launch<32, MODE>(p, B, stream);
-    case 64:
-      // bf16 logits at head dimension 64 belong to attn_wgmma.cuh
-      if constexpr (MODE == kKeyMaskI8) return launch<64, MODE>(p, B, stream);
-      return cudaErrorInvalidValue;
+    case 64: return cudaErrorInvalidValue;  // belongs to attn_wgmma.cuh
     case 128: return launch<128, MODE>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }

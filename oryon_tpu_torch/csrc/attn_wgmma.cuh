@@ -1,8 +1,9 @@
 // Streaming softmax attention at head dimension 64, designed for Hopper: the
 // device code of the CLIP-tower attention kernels K1 (mha_lanes.cu, packed
-// [B, L, 3C] rows with an additive key mask) and K5 (flash.cu, [B, H, L, D]
-// rows with segment ids).  Every other head dimension, and K1-i8 at every
-// head dimension, stay on the WMMA kernel of attn_stream.cuh.
+// [B, L, 3C] rows with an additive key mask), K1-i8 (the same with logits
+// from per-head int8 codes) and K5 (flash.cu, [B, H, L, D] rows with segment
+// ids).  Every other head dimension stays on the WMMA kernel of
+// attn_stream.cuh.
 //
 // What bounds the function on an H100: 4*L*L*64 FLOPs per (image, head)
 // against 4*L*64*2 bytes, so the tensor cores, and beside them the L*L
@@ -44,37 +45,63 @@
 // below f32 rounding of the logit and far below the bf16 rounding of P.
 // Rows at or past L are never written; the output tile is staged through
 // shared memory (swizzled, conflict-free) and written with 16-byte stores.
+//
+// K1-i8 (mode kKeyMaskI8) differs in the first product only.  A pre-pass
+// (mha_lanes.cu) has left the int8 codes of q * scale and k in a [B, L, 2C]
+// scratch and the per-(image, head) absmax beside it, so a tile is quantised
+// once a call and not once a query-tile block.  Q and K tiles are [64, 64]
+// int8 with 64-byte rows: their tensor map takes the 64-byte swizzle and the
+// descriptors its form (8-row groups 512 bytes apart); S = Q K^T is
+// `wgmma` m64n64k32.s32.s8.s8 x 2 a key tile at twice the bf16 rate, a K tile
+// is 4 KB instead of 8.  The s32 sums have the f32 accumulator's layout; they
+// reach the softmax as floats without a conversion instruction (see
+// kMagicBits), descaled by qm * km / 127^2 in the FMA that applies the mask.
+// P V, the ring, the barriers and the output are the bf16 kernel's.
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled itself
-                   // is looked up at run time, so nothing links against libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace oryon_attn_wg {
 
+using namespace oryon_hopper;
+
 enum Mode {
-  kKeyMask = 0,   // logit = acc * scale + kmask[key]
-  kSegments = 1,  // logit = acc * scale where seg[query] == seg[key], else masked
+  kKeyMask = 0,    // logit = acc * scale + kmask[key]
+  kSegments = 1,   // logit = acc * scale where seg[query] == seg[key], else masked
+  kKeyMaskI8 = 2,  // logit = int32 acc * (qm * km / 127^2) + kmask[key]
 };
 
 constexpr int kHD = 64;              // head dimension this kernel takes
 constexpr int kTileBytes = 64 * 128; // one [64 rows, 64 bf16] tile, 128-byte rows
 constexpr float kLog2e = 1.4426950408889634f;
 
+// An int32 sum n with |n| < 2^22 (here at most 64 * 127^2 < 2^20) added to
+// the bits of 1.5 * 2^23 is the float 12582912 + n, exactly: the int8 logits
+// become floats with one integer add, and the constant leaves with the mask
+// term of the softmax's FMA (aux = kmask * log2e - kMagic * logit_mul).  The
+// FMA rounds once, after the exact product and sum, so nothing cancels; the
+// rounding of the constant itself is one shift of every live logit of an
+// (image, head), which a softmax does not see.
+constexpr int kMagicBits = 0x4B400000;
+constexpr float kMagic = 12582912.f;
+
 // Rows q0.. of q, k, v come through tensor maps over [planes, rows, cols]:
 // column = col + h * hcol, plane = b * zb + h * zh.
 struct Params {
   __nv_bfloat16* out;
   long long ob, oh, orow;  // out element (b, h, row, d) at b*ob + h*oh + row*orow + d
-  const float* kmask;      // [L] additive f32 (kKeyMask)
+  const float* kmask;      // [L] additive f32 (kKeyMask, kKeyMaskI8)
   const int* seg;          // [B, L] segment ids or null = one segment (kSegments)
+  const float* absmax;     // [B, heads, 2]: max|q * scale|, max|k| (kKeyMaskI8)
   int L;
   int heads;
-  float scale_log2;        // logit scale * log2(e)
+  float scale_log2;        // logit scale * log2(e) (not kKeyMaskI8)
   int col_k, col_v;        // first column of k and of v (q starts at column 0)
   int hcol;                // columns per head step (64 packed, 0 split)
   int zb, zh;              // plane coordinate of (b, h)
@@ -82,92 +109,10 @@ struct Params {
 
 // ---------------------------------------------------------------- PTX pieces
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier has left the phase of the given parity.  A barrier
-// that never completes (a programming error) traps after about 2^28 polls
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// One [64 rows, 64 columns] bf16 box at (col, row, plane) into shared memory;
-// rows past the tensor's end arrive as zeros.  The box's bytes are counted on
-// the barrier.
-__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map,
-                                              uint32_t bar, int col, int row,
-                                              int plane) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
-      "r"(row), "r"(plane)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;  // ex2(-inf) = +0
-}
-
-// Shared-memory matrix descriptor of a tile with 128-byte rows under the
-// 128-byte swizzle: 8-row groups 1024 bytes apart (the stride byte offset).
-// K-major operands (Q, K: the 64 head-dim values of a row are contiguous)
-// advance 32 bytes per k16 step; the MN-major operand (V: N = head dim
-// contiguous, K = keys down the rows) advances 16 rows = 2048 bytes.  The
-// leading byte offset is not used by either (one 64-wide swizzle atom).
-__device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr) {
-  uint64_t desc = 0;
-  desc |= uint64_t((smem_addr & 0x3FFFFu) >> 4);  // start address
-  desc |= uint64_t(1) << 16;                      // leading byte offset (unused)
-  desc |= uint64_t(1024 >> 4) << 32;              // stride byte offset
-  desc |= uint64_t(1) << 62;                      // 128-byte swizzle
-  return desc;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving uses of accumulator registers across the
@@ -175,6 +120,10 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&r)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(int (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define ORYON_ACC32(d)                                                         \
@@ -184,6 +133,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[32]) {
       "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
       "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),         \
       "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define ORYON_ACC32_INT(d)                                                     \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),      \
+      "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), \
+      "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),         \
+      "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),         \
+      "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),         \
+      "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
 
 #define ORYON_ACC32_LIST                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
@@ -203,6 +160,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       ", %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : ORYON_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The same for int8 codes: D[64, 64] (+)= A[64, 32] . B[32, 64]^T-as-stored,
+// both K-major in shared memory (the only layout 8-bit operands have), int32
+// sums in registers laid out as the f32 ones.
+__device__ __forceinline__ void wgmma_ss_i8(int (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " ORYON_ACC32_LIST
+      ", %32, %33, p;\n"
+      "}\n"
+      : ORYON_ACC32_INT(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -228,7 +201,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // The online softmax of one key tile on the accumulator registers of S: takes
-// the logits to log2 units (scale and mask), updates the running row max and
+// the logits to log2 units (scale and mask; kKeyMaskI8 goes the way of
+// kKeyMask, with the descale as its scale), updates the running row max and
 // row sum of this thread's two rows, and leaves P = exp2(S - m) rounded to
 // bf16 and packed as the A fragments of the P V product.  corr[r] is what O's
 // row r must be multiplied by before this tile's P V is added.
@@ -322,6 +296,20 @@ __device__ __forceinline__ void issue_qk(float (&s)[kGroups][32], uint64_t q_des
   }
 }
 
+// The same from int8 tiles (64-byte rows: a 64-key group is 4 KB, a k32 step
+// 32 bytes), as int32 sums.
+template <int kGroups>
+__device__ __forceinline__ void issue_qk_i8(int (&s)[kGroups][32], uint64_t q_desc,
+                                            uint64_t k_desc) {
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+    for (int kk = 0; kk < kHD / 32; ++kk) {
+      wgmma_ss_i8(s[g], q_desc + 2 * kk, k_desc + g * ((64 * 64) >> 4) + 2 * kk, kk > 0);
+    }
+  }
+}
+
 // O[64, 64] += P[64, kBK] . V[kBK, 64], issued and not waited for.
 template <int kGroups>
 __device__ __forceinline__ void issue_pv(float (&o)[32],
@@ -337,8 +325,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
   }
 }
 
-template <int kGroups>
-__device__ __forceinline__ void fence_regs(float (&s)[kGroups][32]) {
+template <typename T, int kGroups>
+__device__ __forceinline__ void fence_regs(T (&s)[kGroups][32]) {
 #pragma unroll
   for (int g = 0; g < kGroups; ++g) fence_regs(s[g]);
 }
@@ -358,12 +346,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&pk)[kGroups][16]) {
 
 // Shared memory, from a 1024-byte aligned base: the Q tiles (one a consumer
 // warpgroup; later the staging of its output tile), the ring of K and V
-// tiles, per stage the keys' mask values or segment ids, the barriers.
-template <int kConsumers, int kBK, int kStages>
+// tiles, per stage the keys' mask values or segment ids, the barriers.  Q and
+// K rows are 128 bytes of bf16 or 64 bytes of int8 codes; a Q tile keeps its
+// 8 KB either way, for the output.
+template <int MODE, int kConsumers, int kBK, int kStages>
 struct Smem {
+  static constexpr int qk_row_bytes = (MODE == kKeyMaskI8) ? 64 : 128;
+  static constexpr int qk_box_bytes = 64 * qk_row_bytes;  // one TMA box of q or k
   static constexpr int q_off = 0;
   static constexpr int kv_off = kConsumers * kTileBytes;
-  static constexpr int stage_bytes = 2 * kBK * 128;
+  static constexpr int k_bytes = kBK * qk_row_bytes;
+  static constexpr int stage_bytes = k_bytes + kBK * 128;
   static constexpr int aux_off = kv_off + kStages * stage_bytes;
   static constexpr int bar_off = aux_off + kStages * kBK * 4;
   static constexpr int bytes = bar_off + (2 * kStages + 1) * 8;
@@ -375,7 +368,7 @@ __global__ void __launch_bounds__(kConsumers * 128 + 32, kMinBlocks)
 attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v, const Params p) {
-  using Lay = Smem<kConsumers, kBK, kStages>;
+  using Lay = Smem<MODE, kConsumers, kBK, kStages>;
   static_assert(kBK % 64 == 0, "a key tile is whole 64-row boxes");
   constexpr int kGroups = kBK / 64;  // 64-key groups of a tile
   constexpr int kBQ = kConsumers * 64;
@@ -397,6 +390,12 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int n_tiles = (L + kBK - 1) / kBK;
   const int plane = b * p.zb + h * p.zh;
   const int col_q = h * p.hcol;
+  float logit_mul = p.scale_log2;  // what the tensor-core sum is multiplied by
+  if constexpr (MODE == kKeyMaskI8) {
+    const float qm = p.absmax[(size_t(b) * p.heads + h) * 2];
+    const float km = p.absmax[(size_t(b) * p.heads + h) * 2 + 1];
+    logit_mul = (qm * km) / (127.0f * 127.0f) * kLog2e;
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -404,15 +403,14 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(bar_empty + s * 8, kConsumers * 4);  // one arrive a consumer warp
     }
     mbar_init(bar_q, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (warp == kConsumers * 4) {
     // ------------------------------------------------------ producer warp
     if (lane == 0) {
-      mbar_arrive_expect_tx(bar_q, kConsumers * kTileBytes);
+      mbar_arrive_expect_tx(bar_q, kConsumers * Lay::qk_box_bytes);
       for (int w = 0; w < kConsumers; ++w) {
         tma_load_tile(base + Lay::q_off + w * kTileBytes, &map_q, bar_q, col_q,
                       q0 + w * 64, plane);
@@ -428,6 +426,10 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         if constexpr (MODE == kSegments) {
           reinterpret_cast<int*>(gbase + Lay::aux_off)[stage * kBK + j] =
               (p.seg != nullptr && key < L) ? p.seg[size_t(b) * L + key] : 1;
+        } else if constexpr (MODE == kKeyMaskI8) {
+          // the mask, less what kMagicBits added to the sum
+          reinterpret_cast<float*>(gbase + Lay::aux_off)[stage * kBK + j] =
+              (key < L) ? fmaf(p.kmask[key], kLog2e, -kMagic * logit_mul) : -INFINITY;
         } else {
           reinterpret_cast<float*>(gbase + Lay::aux_off)[stage * kBK + j] =
               (key < L) ? p.kmask[key] * kLog2e : -INFINITY;
@@ -437,10 +439,10 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (lane == 0) {
         const uint32_t full = bar_full + stage * 8;
         const uint32_t kdst = base + Lay::kv_off + stage * Lay::stage_bytes;
-        const uint32_t vdst = kdst + kBK * 128;
+        const uint32_t vdst = kdst + Lay::k_bytes;
         mbar_arrive_expect_tx(full, Lay::stage_bytes);
         for (int g = 0; g < kGroups; ++g) {
-          tma_load_tile(kdst + g * kTileBytes, &map_k, full, p.col_k + col_q,
+          tma_load_tile(kdst + g * Lay::qk_box_bytes, &map_k, full, p.col_k + col_q,
                         k0 + g * 64, plane);
           tma_load_tile(vdst + g * kTileBytes, &map_v, full, p.col_v + col_q,
                         k0 + g * 64, plane);
@@ -472,14 +474,16 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   float l_run[2] = {0.f, 0.f};              // running sum of rounded weights
 
   const uint32_t q_smem = base + Lay::q_off + wg * kTileBytes;
-  const uint64_t q_desc = make_desc(q_smem);
+  constexpr int kQKSwizzle = (MODE == kKeyMaskI8) ? kSwizzle64 : kSwizzle128;
+  const uint64_t q_desc = make_desc<kQKSwizzle>(q_smem);
   mbar_wait(bar_q, 0);
 
   const auto k_desc_of = [&](int stage) {
-    return make_desc(base + Lay::kv_off + stage * Lay::stage_bytes);
+    return make_desc<kQKSwizzle>(base + Lay::kv_off + stage * Lay::stage_bytes);
   };
   const auto v_desc_of = [&](int stage) {
-    return make_desc(base + Lay::kv_off + stage * Lay::stage_bytes + kBK * 128);
+    return make_desc<kSwizzle128>(base + Lay::kv_off + stage * Lay::stage_bytes +
+                                  Lay::k_bytes);
   };
   const auto aux_of = [&](int stage) {
     return gbase + Lay::aux_off + stage * kBK * 4;
@@ -493,14 +497,29 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it % kStages;
     mbar_wait(bar_full + stage * 8, (it / kStages) & 1u);
-    fence_regs(s);
-    wgmma_fence();
-    issue_qk<kGroups>(s, q_desc, k_desc_of(stage));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
+    if constexpr (MODE == kKeyMaskI8) {
+      int si[kGroups][32];
+      fence_regs(si);
+      wgmma_fence();
+      issue_qk_i8<kGroups>(si, q_desc, k_desc_of(stage));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(si);
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[g][i] = __int_as_float(si[g][i] + kMagicBits);
+      }
+    } else {
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk<kGroups>(s, q_desc, k_desc_of(stage));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+    }
     softmax_tile<MODE, kGroups>(s, aux_of(stage), L - it * kBK - c2, qseg,
-                                p.scale_log2, c2, m_run, l_run, pk, corr);
+                                logit_mul, c2, m_run, l_run, pk, corr);
     scale_rows(o, corr);
     fence_regs(o);
     wgmma_fence();
@@ -547,56 +566,11 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // --------------------------------------------------------------- host side
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the loaded driver, so that the link line needs
-// no -lcuda.
-inline EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(ptr);
-  }();
-  return fn;
-}
-
-// A map over bf16 [planes, rows, cols] (strides in bytes) that loads boxes of
-// [64 rows, 64 columns] with the 128-byte swizzle and zero fill out of bounds.
-inline cudaError_t encode_map(CUtensorMap* map, const void* base, uint64_t cols,
-                              uint64_t rows, uint64_t planes, uint64_t row_bytes,
-                              uint64_t plane_bytes) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[3] = {cols, rows, planes};
-  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int MODE, int kConsumers, int kBK, int kStages, int kMinBlocks>
 cudaError_t launch_config(const CUtensorMap& mq, const CUtensorMap& mk,
                           const CUtensorMap& mv, const Params& p, int B,
                           cudaStream_t stream) {
-  using Lay = Smem<kConsumers, kBK, kStages>;
+  using Lay = Smem<MODE, kConsumers, kBK, kStages>;
   auto kernel = attn_wgmma_kernel<MODE, kConsumers, kBK, kStages, kMinBlocks>;
   static bool configured = false;
   if (!configured) {
@@ -622,8 +596,8 @@ cudaError_t launch_packed(const void* qkv, const void* kmask, void* out,
                                  int B, int L, int C, int heads, float scale,
                                  cudaStream_t stream) {
   CUtensorMap map;
-  cudaError_t err = encode_map(&map, qkv, 3ull * C, L, B, 6ull * C,
-                               6ull * C * uint64_t(L));
+  cudaError_t err = encode_map(&map, qkv, 2, 3ull * C, L, B, 6ull * C,
+                               6ull * C * uint64_t(L), 64, 64);
   if (err != cudaSuccess) return err;
   Params p{};
   p.out = static_cast<__nv_bfloat16*>(out);
@@ -643,6 +617,40 @@ cudaError_t launch_packed(const void* qkv, const void* kmask, void* out,
       map, map, map, p, B, stream);
 }
 
+// K1-i8: the same with the logits from int8 codes.  codes [B, L, 2C] int8
+// (q * scale | k, as the first two thirds of a qkv row) and absmax
+// [B, heads, 2] f32 come from the pre-pass; v is read from qkv.  One map over
+// the codes serves q and k (64-byte swizzle), one over qkv serves v.
+template <int kConsumers = 2, int kBK = 64, int kStages = 4, int kMinBlocks = 2>
+cudaError_t launch_packed_i8(const void* qkv, const void* codes,
+                             const void* absmax, const void* kmask, void* out,
+                             int B, int L, int C, int heads,
+                             cudaStream_t stream) {
+  CUtensorMap map_v, map_c;
+  cudaError_t err = encode_map(&map_v, qkv, 2, 3ull * C, L, B, 6ull * C,
+                               6ull * C * uint64_t(L), 64, 64);
+  if (err != cudaSuccess) return err;
+  err = encode_map(&map_c, codes, 1, 2ull * C, L, B, 2ull * C,
+                   2ull * C * uint64_t(L), 64, 64);
+  if (err != cudaSuccess) return err;
+  Params p{};
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ob = (long long)L * C;
+  p.oh = kHD;
+  p.orow = C;
+  p.kmask = static_cast<const float*>(kmask);
+  p.absmax = static_cast<const float*>(absmax);
+  p.L = L;
+  p.heads = heads;
+  p.col_k = C;
+  p.col_v = 2 * C;
+  p.hcol = kHD;
+  p.zb = 1;
+  p.zh = 0;
+  return launch_config<kKeyMaskI8, kConsumers, kBK, kStages, kMinBlocks>(
+      map_c, map_c, map_v, p, B, stream);
+}
+
 // K5: q, k, v, out [B, H, L, 64] bf16, seg [B, L] int32 or null.  A map each
 // over [B*H, L, 64].
 template <int kConsumers = 2, int kBK = 64, int kStages = 4, int kMinBlocks = 2>
@@ -652,8 +660,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    cudaError_t err = encode_map(&maps[i], bases[i], kHD, L, uint64_t(B) * H,
-                                 kHD * 2, uint64_t(L) * kHD * 2);
+    cudaError_t err = encode_map(&maps[i], bases[i], 2, kHD, L, uint64_t(B) * H,
+                                 kHD * 2, uint64_t(L) * kHD * 2, 64, 64);
     if (err != cudaSuccess) return err;
   }
   Params p{};

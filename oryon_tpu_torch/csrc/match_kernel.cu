@@ -14,24 +14,31 @@
 // bound by arithmetic; materialising the 5120 x 36864 f32 distance matrix
 // would instead cost 755 MB of device memory traffic per pair.
 //
-// Design: one launch covers the whole batch, grid = (source tiles, pairs).
-// Each thread keeps two 32-wide source rows in registers and walks every
+// Two kernels serve it.  precision "bf16" (inputs rounded to bf16, f32 sums;
+// the serving default of MatchParams.precision) runs the tensor-core kernel
+// of match_wgmma.cuh: a compacting pre-pass, then `wgmma` products with the
+// running best on the accumulator registers.  precision "fp32" runs the
+// CUDA-core kernel below on the inputs as they are: no tensor-core type
+// keeps its gate (minima within 1e-5 of the plain version; TF32 has 10 bits
+// of mantissa).
+//
+// Design of the CUDA-core kernel: one launch covers the whole batch, grid =
+// (source tiles, pairs).  Each thread keeps two 32-wide source rows in registers and walks every
 // target of its pair in increasing index order; a block stages 256-target
 // chunks in shared memory, where all threads read the same target at once
 // (a broadcast, no bank conflicts).  Excluded targets are skipped, which is
 // the same as +inf under the strict `<` that keeps the first index on ties.
 // Each dot product is summed as four interleaved partial sums (more
 // independent FMAs in flight); the sum order therefore differs from a BLAS
-// matmul in the last bits, which only matters at exact near-ties.
-// precision "bf16" rounds both inputs to bf16 on load and accumulates in f32
-// (the products of two bf16 values are exact in f32), the serving default of
-// MatchParams.precision; "fp32" uses the inputs as they are.
-// Simple first: CUDA-core FMAs, no tensor cores (later work).
+// matmul in the last bits, which only matters at exact near-ties.  32 FMAs
+// and about 6 more instructions a product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "match_wgmma.cuh"
 
 namespace {
 
@@ -41,21 +48,16 @@ constexpr int kRows = 2;        // source rows per thread
 constexpr int kTile = kThreads * kRows;  // source rows per block
 constexpr int kChunk = 256;     // targets per shared-memory chunk
 
-__device__ __forceinline__ float maybe_round(float x, bool round_bf16) {
-  return round_bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
 __global__ void __launch_bounds__(kThreads)
 masked_argmin_kernel(const float* __restrict__ src,
                      const float* __restrict__ tgt,
                      const uint8_t* __restrict__ bad,
                      float* __restrict__ out_min, int* __restrict__ out_arg,
-                     int S, int N, int round_bf16) {
+                     int S, int N) {
   __shared__ float4 t_s[kChunk * kD / 4];
   __shared__ uint8_t bad_s[kChunk];
 
   const int pair = blockIdx.y;
-  const bool rnd = round_bf16 != 0;
   const float* src_p = src + size_t(pair) * S * kD;
   const float* tgt_p = tgt + size_t(pair) * N * kD;
   const uint8_t* bad_p = bad + size_t(pair) * N;
@@ -68,7 +70,7 @@ masked_argmin_kernel(const float* __restrict__ src,
     const int r = blockIdx.x * kTile + i * kThreads + threadIdx.x;
 #pragma unroll
     for (int d = 0; d < kD; ++d) {
-      x[i][d] = r < S ? maybe_round(src_p[size_t(r) * kD + d], rnd) : 0.f;
+      x[i][d] = r < S ? src_p[size_t(r) * kD + d] : 0.f;
     }
     best[i] = INFINITY;
     arg[i] = 0;
@@ -79,12 +81,7 @@ masked_argmin_kernel(const float* __restrict__ src,
     __syncthreads();  // the previous chunk is no longer read
     const float4* src4 = reinterpret_cast<const float4*>(tgt_p + size_t(c0) * kD);
     for (int idx = threadIdx.x; idx < n * kD / 4; idx += kThreads) {
-      float4 v = src4[idx];
-      v.x = maybe_round(v.x, rnd);
-      v.y = maybe_round(v.y, rnd);
-      v.z = maybe_round(v.z, rnd);
-      v.w = maybe_round(v.w, rnd);
-      t_s[idx] = v;
+      t_s[idx] = src4[idx];
     }
     for (int j = threadIdx.x; j < n; j += kThreads) bad_s[j] = bad_p[c0 + j];
     __syncthreads();
@@ -138,12 +135,32 @@ masked_argmin_kernel(const float* __restrict__ src,
 extern "C" int oryon_masked_argmin_f32(const void* src, const void* tgt,
                                        const void* bad, void* out_min,
                                        void* out_arg, int P, int S, int N,
-                                       int D, int round_bf16, void* stream) {
+                                       int D, void* stream) {
   if (P <= 0 || S <= 0 || N <= 0 || D != kD) return int(cudaErrorInvalidValue);
   dim3 grid((S + kTile - 1) / kTile, P);
   masked_argmin_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), static_cast<const float*>(tgt),
       static_cast<const uint8_t*>(bad), static_cast<float*>(out_min),
-      static_cast<int*>(out_arg), S, N, round_bf16);
+      static_cast<int*>(out_arg), S, N);
   return int(cudaGetLastError());
+}
+
+// The same function with both inputs rounded to bf16, on the tensor cores
+// (match_wgmma.cuh).  Scratch, allocated by the caller: tgt16 [P, N, 32]
+// bf16, idx_map [P, N] i32, counts [P] i32; phase 1 (the compacting pre-pass)
+// writes them, phase 2 (the products and the reduction over `splits` ranges
+// of each pair's targets, then their merge) reads them on the same stream,
+// through part_best [P, splits, S] f32 and part_pos [P, splits, S] i32;
+// phases = 3 runs both.
+extern "C" int oryon_masked_argmin_wgmma_bf16(
+    const void* src, const void* tgt, const void* bad, void* tgt16, void* idx_map,
+    void* counts, void* part_best, void* part_pos, void* out_min, void* out_arg,
+    int P, int S, int N, int D, int splits, int phases, void* stream) {
+  if (P <= 0 || P > 65535 || S <= 0 || N <= 0 || D != oryon_match_wg::kD ||
+      splits <= 0 || splits > 65535 || (phases & ~3) != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(oryon_match_wg::launch(src, tgt, bad, tgt16, idx_map, counts, part_best,
+                                    part_pos, out_min, out_arg, P, S, N, splits, phases,
+                                    static_cast<cudaStream_t>(stream)));
 }

@@ -21,10 +21,10 @@
 // and 2C + h*64), so no q/k/v split or head transpose ever touches device
 // memory and the zero fill past row L keeps a tile out of the next image.
 //
-// Design, every other head dimension (16, 32, 128) and K1-i8: the WMMA kernel
-// of attn_stream.cuh, flash-attention style streaming with one block of 4
-// warps per 64 query rows, keys in tiles of 64, S, P and O passed through
-// shared memory, no overlap of loads and products.
+// Design, every other head dimension (16, 32, 128), with bf16 or int8 logits:
+// the WMMA kernel of attn_stream.cuh, flash-attention style streaming with
+// one block of 4 warps per 64 query rows, keys in tiles of 64, S, P and O
+// passed through shared memory, no overlap of loads and products.
 //
 // Both keep the TPU kernel's arithmetic: f32 online softmax (running max and
 // sum per row), exponentials rounded to bf16 before the P V product, the row
@@ -38,10 +38,17 @@
 // query-tile blocks, so the maxima are taken by a small pre-pass kernel (one
 // block per (image, head)) into a [B, heads, 2] f32 scratch that the wrapper
 // allocates; it re-reads q and k once (2/3 of the input) from L2 or device
-// memory.  Each block of the main kernel then quantises its Q tile and every
-// K tile while copying them to shared memory (round half to even), runs
-// int8 x int8 -> int32 WMMA for the logits, and descales by qm * km / 127^2
-// in the softmax's first pass.  P V stays bf16.
+// memory.  The logits are int8 x int8 -> int32 tensor-core sums, descaled by
+// qm * km / 127^2 where the softmax applies the mask.  P V stays bf16.
+//  * Head dimension 64: a second pre-pass kernel quantises q * scale and k
+//    once (round half to even, the reference's order of multiplies) into a
+//    [B, L, 2C] int8 scratch, 21 MB written against 42 MB read at the ViT-L
+//    shape, and the main kernel is the int8 mode of attn_wgmma.cuh: Q and K
+//    tiles of codes through TMA, `wgmma` m64n64k32.s32.s8.s8 for the logits.
+//    Quantising in the main kernel instead would do it once per query-tile
+//    block, ten times a head, on the CUDA cores that the softmax needs.
+//  * Head dimensions 16, 32 and 128: each block of the WMMA kernel quantises
+//    its Q tile and every K tile while copying them to shared memory.
 
 #include "attn_stream.cuh"
 #include "attn_wgmma.cuh"
@@ -61,6 +68,7 @@ qk_absmax_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ out,
   const int b = blockIdx.y;
   const __nv_bfloat16* base = qkv + size_t(b) * L * 3 * C + h * HD;
   float qm = 0.f, km = 0.f;
+#pragma unroll 4  // more loads in flight: the pass is bound by memory latency
   for (int idx = threadIdx.x; idx < L * kVec; idx += blockDim.x) {
     const __nv_bfloat16* rowp = base + size_t(idx / kVec) * 3 * C + (idx % kVec) * 8;
     const uint4 qv = *reinterpret_cast<const uint4*>(rowp);
@@ -91,6 +99,37 @@ qk_absmax_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ out,
     out[(size_t(b) * gridDim.x + h) * 2] = fmaxf(qm, 1e-12f);
     out[(size_t(b) * gridDim.x + h) * 2 + 1] = fmaxf(km, 1e-12f);
   }
+}
+
+// The int8 codes of q * scale and k: codes[b, l, c] = rn((x * pre) * r) for
+// the first 2C columns of a qkv row (q | k), pre = scale for q and 1 for k,
+// r = 127 / absmax of the column's (image, head): two f32 multiplies in this
+// order and round half to even, as the reference does.  Eight values a thread.
+__global__ void __launch_bounds__(256)
+qk_quantise_kernel(const __nv_bfloat16* __restrict__ qkv,
+                   const float* __restrict__ absmax,
+                   signed char* __restrict__ codes, int B, int L, int C,
+                   int heads, float scale) {
+  const int vecs = 2 * C / 8;  // 16-byte vectors of q | k in a row
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)B * L * vecs) return;
+  const long long row = idx / vecs;  // b * L + l
+  const int col = int(idx % vecs) * 8;
+  const int b = int(row / L);
+  const int is_k = col >= C;
+  const int h = (col - is_k * C) / (C / heads);
+  const float pre = is_k ? 1.0f : scale;
+  const float r = 127.0f / absmax[(size_t(b) * heads + h) * 2 + is_k];
+  const uint4 raw = *reinterpret_cast<const uint4*>(qkv + row * 3 * C + col);
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  alignas(8) signed char qv[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float f = __bfloat162float(x[e]) * pre;
+    qv[e] = static_cast<signed char>(__float2int_rn(f * r));
+  }
+  *reinterpret_cast<uint2*>(codes + row * 2 * C + col) =
+      *reinterpret_cast<const uint2*>(qv);
 }
 
 AttnParams packed_params(const void* qkv, const void* kmask, void* out, int L,
@@ -143,8 +182,9 @@ extern "C" int oryon_fused_mha_lanes_wgmma_bf16(const void* qkv,
                                           static_cast<cudaStream_t>(stream)));
 }
 
-// The same with int8 logits.  absmax: [B, heads, 2] f32 scratch, written by
-// the pre-pass and read by the main kernel on the same stream.
+// The same with int8 logits, C / heads in {16, 32, 128}.  absmax:
+// [B, heads, 2] f32 scratch, written by the pre-pass and read by the main
+// kernel on the same stream.
 extern "C" int oryon_fused_mha_lanes_i8qk_bf16(const void* qkv,
                                                const void* kmask, void* absmax,
                                                void* out, int B, int L, int C,
@@ -160,7 +200,6 @@ extern "C" int oryon_fused_mha_lanes_i8qk_bf16(const void* qkv,
   switch (C / heads) {
     case 16: qk_absmax_kernel<16><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
     case 32: qk_absmax_kernel<32><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
-    case 64: qk_absmax_kernel<64><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
     case 128: qk_absmax_kernel<128><<<grid, 256, 0, s>>>(x, am, L, C, scale); break;
     default: return int(cudaErrorInvalidValue);
   }
@@ -169,4 +208,36 @@ extern "C" int oryon_fused_mha_lanes_i8qk_bf16(const void* qkv,
   AttnParams p = packed_params(qkv, kmask, out, L, C, heads, scale);
   p.absmax = am;
   return int(launch_hd<kKeyMaskI8>(C / heads, p, B, s));
+}
+
+// The same with int8 logits at C / heads = 64 (int8 wgmma).  absmax
+// [B, heads, 2] f32 and codes [B, L, 2C] int8 are scratch: phase 1 (the
+// pre-pass: absmax, then the codes) writes them, phase 2 (the attention
+// kernel) reads them on the same stream.  phases = 3 runs both, as every
+// caller but a measurement of one phase does.
+extern "C" int oryon_fused_mha_lanes_i8qk_wgmma_bf16(
+    const void* qkv, const void* kmask, void* absmax, void* codes, void* out,
+    int B, int L, int C, int heads, float scale, int phases, void* stream) {
+  if (B <= 0 || L <= 0 || heads <= 0 || C != heads * oryon_attn_wg::kHD ||
+      (phases & ~3) != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  if (phases & 1) {
+    const auto* x = static_cast<const __nv_bfloat16*>(qkv);
+    auto* am = static_cast<float*>(absmax);
+    qk_absmax_kernel<64><<<dim3(heads, B), 256, 0, s>>>(x, am, L, C, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    const long long threads = (long long)B * L * (2 * C / 8);
+    qk_quantise_kernel<<<unsigned((threads + 255) / 256), 256, 0, s>>>(
+        x, am, static_cast<signed char*>(codes), B, L, C, heads, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  if (phases & 2) {
+    return int(oryon_attn_wg::launch_packed_i8(qkv, codes, absmax, kmask, out, B,
+                                               L, C, heads, s));
+  }
+  return int(cudaSuccess);
 }

@@ -1,11 +1,26 @@
 """Masked cosine argmin for nearest-neighbour matching (K2).
 
 Counterpart of ``oryon_tpu/ops/pallas/match_kernel.py`` and of the default
-XLA path ``oryon_tpu/ops/matching.py::_streaming_argmin``: one kernel serves
-both.  The CUDA source is ``oryon_tpu_torch/csrc/match_kernel.cu``.
+XLA path ``oryon_tpu/ops/matching.py::_streaming_argmin``: one wrapper serves
+both.  The CUDA sources are ``oryon_tpu_torch/csrc/match_kernel.cu`` and
+``csrc/match_wgmma.cuh``.
 
-``masked_argmin`` launches the kernel for CUDA tensors and runs the plain
-PyTorch version (``masked_argmin_plain``) for CPU tensors.
+``masked_argmin`` launches a kernel for CUDA tensors and runs the plain
+PyTorch version (``masked_argmin_plain``) for CPU tensors.  Which kernel
+serves which mode (``kernel_entry``):
+
+- ``precision="bf16"`` (inputs rounded to bf16, f32 sums; the serving
+  default): a pre-pass that compacts the non-excluded targets of each pair,
+  in index order and rounded to bf16, beside an index map and a per-pair
+  count (``compact_targets_plain`` is its plain version), then the
+  tensor-core kernel (``wgmma``, the running best on the accumulator
+  registers) over ``splits`` ranges of each pair's targets and a small merge
+  of the ranges, entry ``oryon_masked_argmin_wgmma_bf16``.  The count stays
+  in device memory: nothing synchronises with the host between the launches;
+- ``precision="fp32"``: the CUDA-core kernel, entry
+  ``oryon_masked_argmin_f32``.  TF32 would not hold this mode's gate
+  (minima within 1e-5 of the plain version), and it is not the serving
+  default.
 """
 from __future__ import annotations
 
@@ -15,8 +30,10 @@ import torch
 
 from oryon_tpu_torch.ops.cuda import _lib
 
-launches = 0   # kernel launches so far; callers may reset it to 0
+launches = 0   # kernel launches so far (pre-pass and main kernel count as
+               # one); callers may reset it to 0
 PRECISIONS = ("bf16", "fp32")
+COMPACT, REDUCE = 1, 2   # phases of the bf16 entry; both = 3
 
 
 def _round_inputs(x: torch.Tensor, precision: str) -> torch.Tensor:
@@ -48,17 +65,113 @@ def masked_argmin_plain(src: torch.Tensor, tgt: torch.Tensor,
     return run_min, run_arg
 
 
+def compact_targets_plain(tgt: torch.Tensor, tgt_bad: torch.Tensor):
+    """Plain version of the bf16 kernel's pre-pass: (tgt16 [P, N, D] bf16
+    with the non-excluded rows of each pair first, in index order; idx_map
+    [P, N] int32, the original index of each kept row; counts [P] int32).
+    Rows and map entries at or past a pair's count are zeros here and not
+    written by the kernel."""
+    P, N, _ = tgt.shape
+    tgt16 = torch.zeros(tgt.shape, dtype=torch.bfloat16, device=tgt.device)
+    idx_map = torch.zeros((P, N), dtype=torch.int32, device=tgt.device)
+    counts = (~tgt_bad).sum(dim=1).to(torch.int32)
+    for p in range(P):
+        kept = torch.nonzero(~tgt_bad[p]).flatten()
+        tgt16[p, :kept.numel()] = tgt[p, kept].bfloat16()
+        idx_map[p, :kept.numel()] = kept.to(torch.int32)
+    return tgt16, idx_map, counts
+
+
+def kernel_entry(precision: str) -> str:
+    """The C entry point that serves this mode (see the module docstring)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+    return ("oryon_masked_argmin_wgmma_bf16" if precision == "bf16"
+            else "oryon_masked_argmin_f32")
+
+
+def target_splits(P: int, S: int, N: int, sm_count: int) -> int:
+    """Into how many ranges the bf16 kernel splits each pair's targets.  A
+    block owns 128 source rows of one range and an SM holds two blocks; the
+    ranges make the grid at least twice the resident blocks, so that the
+    last wave is short next to the whole (more ranges cost more than they
+    level: every range starts its running best anew), but no range shorter
+    than eight tiles of 128 targets."""
+    blocks = P * (-(-S // 128))
+    wanted = -(-2 * 2 * sm_count // blocks)
+    longest = max(1, -(-N // 128) // 8)
+    return max(1, min(wanted, longest))
+
+
+def _bf16_scratch(src: torch.Tensor, tgt: torch.Tensor):
+    """What the phases of the bf16 kernel hand each other: tgt16 [P, N, D]
+    bf16, idx_map [P, N] int32 and counts [P] int32 from the pre-pass;
+    part_best [P, splits, S] f32 and part_pos [P, splits, S] int32 from the
+    main kernel to its merge."""
+    P, N, D = tgt.shape
+    S = src.shape[1]
+    sm_count = (torch.cuda.get_device_properties(tgt.device).multi_processor_count
+                if tgt.device.type == "cuda" else 1)
+    splits = target_splits(P, S, N, sm_count)
+    return (torch.empty((P, N, D), dtype=torch.bfloat16, device=tgt.device),
+            torch.empty((P, N), dtype=torch.int32, device=tgt.device),
+            torch.empty((P,), dtype=torch.int32, device=tgt.device),
+            torch.empty((P, splits, S), dtype=torch.float32, device=tgt.device),
+            torch.empty((P, splits, S), dtype=torch.int32, device=tgt.device))
+
+
+def run_bf16_phases(src: torch.Tensor, tgt: torch.Tensor, tgt_bad: torch.Tensor,
+                    phases: int, scratch, out_min: torch.Tensor,
+                    out_arg: torch.Tensor) -> None:
+    """One or both phases of the bf16 kernel on a CUDA device, on scratch
+    (``_bf16_scratch``) and outputs the caller holds: ``COMPACT`` fills the
+    pre-pass's scratch, ``REDUCE`` reads it (main kernel, then merge).  For
+    holding and timing the phases apart; counts no launch and checks no
+    argument."""
+    err = _call_bf16(_lib.library(), src, tgt, tgt_bad, scratch, out_min, out_arg, phases,
+                     torch.cuda.current_stream(src.device).cuda_stream)
+    _lib.check(err, f"masked_argmin bf16 phases {phases}")
+
+
+def _call_bf16(lib, src, tgt, tgt_bad, scratch, out_min, out_arg, phases: int,
+               stream: int) -> int:
+    P, S, D = src.shape
+    return lib.oryon_masked_argmin_wgmma_bf16(
+        src.data_ptr(), tgt.data_ptr(), tgt_bad.data_ptr(),
+        *(t.data_ptr() for t in scratch), out_min.data_ptr(), out_arg.data_ptr(),
+        P, S, tgt.shape[1], D, scratch[3].shape[1], phases, stream)
+
+
+def _launch(lib, src: torch.Tensor, tgt: torch.Tensor, tgt_bad: torch.Tensor,
+            precision: str, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the outputs (and the bf16 kernel's scratch), call the entry
+    point for this mode on ``lib`` and count the launch."""
+    global launches
+    P, S, D = src.shape
+    out_min = torch.empty((P, S), dtype=torch.float32, device=src.device)
+    out_arg = torch.empty((P, S), dtype=torch.int32, device=src.device)
+    if kernel_entry(precision) == "oryon_masked_argmin_wgmma_bf16":
+        err = _call_bf16(lib, src, tgt, tgt_bad, _bf16_scratch(src, tgt), out_min, out_arg,
+                         COMPACT | REDUCE, stream)
+    else:
+        err = lib.oryon_masked_argmin_f32(
+            src.data_ptr(), tgt.data_ptr(), tgt_bad.data_ptr(), out_min.data_ptr(),
+            out_arg.data_ptr(), P, S, tgt.shape[1], D, stream)
+    _lib.check(err, f"masked_argmin({precision})")
+    launches += 1
+    return out_min, out_arg
+
+
 def masked_argmin(src: torch.Tensor, tgt: torch.Tensor, tgt_bad: torch.Tensor,
                   precision: str = "bf16") -> Tuple[torch.Tensor, torch.Tensor]:
     """(min [P, S] f32, argmin [P, S] int32) of 0.5 * (1 - <src, tgt>) over
     the targets of each pair, excluded targets at +inf; ties go to the
-    lowest index.
+    lowest index; a pair with every target excluded gives (+inf, 0).
 
     src: [P, S, D] and tgt: [P, N, D] unit-normalised f32 features;
     tgt_bad: [P, N] bool, True where the target is excluded.  On a CUDA
     device D must be 32 and every tensor contiguous.
     """
-    global launches
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     if (src.dim() != 3 or tgt.dim() != 3 or src.shape[0] != tgt.shape[0]
@@ -77,17 +190,7 @@ def masked_argmin(src: torch.Tensor, tgt: torch.Tensor, tgt_bad: torch.Tensor,
     if not (src.is_contiguous() and tgt.is_contiguous()
             and tgt_bad.is_contiguous()):
         raise ValueError("src, tgt and tgt_bad must be contiguous")
-    P, S, D = src.shape
-    N = tgt.shape[1]
-    if D != 32:
-        raise ValueError(f"kernel takes D=32 features, got {D}")
-    out_min = torch.empty((P, S), dtype=torch.float32, device=src.device)
-    out_arg = torch.empty((P, S), dtype=torch.int32, device=src.device)
-    lib = _lib.library()
-    err = lib.oryon_masked_argmin_f32(
-        src.data_ptr(), tgt.data_ptr(), tgt_bad.data_ptr(), out_min.data_ptr(),
-        out_arg.data_ptr(), P, S, N, D, int(precision == "bf16"),
-        torch.cuda.current_stream(src.device).cuda_stream)
-    _lib.check(err, "masked_argmin")
-    launches += 1
-    return out_min, out_arg
+    if src.shape[2] != 32:
+        raise ValueError(f"kernel takes D=32 features, got {src.shape[2]}")
+    return _launch(_lib.library(), src, tgt, tgt_bad, precision,
+                   torch.cuda.current_stream(src.device).cuda_stream)

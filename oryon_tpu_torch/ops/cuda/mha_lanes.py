@@ -15,8 +15,13 @@ serves which shape (``kernel_entry``):
   through a TMA ring), entry ``oryon_fused_mha_lanes_wgmma_bf16``;
 - head dimensions 16, 32 and 128 with bf16 logits: the WMMA streaming kernel
   of ``csrc/attn_stream.cuh``, entry ``oryon_fused_mha_lanes_bf16``;
-- ``qk_int8=True`` (K1-i8) at every head dimension: the WMMA streaming
-  kernel with int8 logits, entry ``oryon_fused_mha_lanes_i8qk_bf16``.
+- ``qk_int8=True`` (K1-i8) at head dimension 64: a pre-pass that takes the
+  per-(image, head) absmax and quantises q * scale and k once into an int8
+  scratch, then the int8 mode of the wgmma kernel (``wgmma`` s8 x s8 -> s32
+  for the logits), entry ``oryon_fused_mha_lanes_i8qk_wgmma_bf16``;
+- ``qk_int8=True`` at head dimensions 16, 32 and 128: the WMMA streaming
+  kernel with int8 logits (each block quantises the tiles it loads), entry
+  ``oryon_fused_mha_lanes_i8qk_bf16``.
 
 ``qk_int8=True`` forms the logits from int8 codes: per (image, head),
 ``q * scale`` and ``k`` are quantised by the absmax of their whole [L, hd]
@@ -33,6 +38,22 @@ from oryon_tpu_torch.ops.cuda import _lib
 
 launches = 0      # K1 launches so far; callers may reset it to 0
 launches_i8 = 0   # K1-i8 launches (pre-pass and main kernel count as one)
+PREPASS, ATTEND = 1, 2   # phases of the head-dim-64 K1-i8 entry; both = 3
+
+
+def _quantise(q: torch.Tensor, k: torch.Tensor, scale: float):
+    """(qm, km, qi, ki) on [B, H, L, hd] views: the absmax of q * scale and
+    of k over each (image, head) slab, floored at 1e-12, [B, H, 1, 1] f32,
+    and the codes round_half_even(x * (127 / max)) as f32 tensors."""
+    qf = q.float() * scale
+    kf = k.float()
+    qm = qf.abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1e-12)
+    km = kf.abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1e-12)
+    # a true division, as the reference's and the kernels' 127 / max: a
+    # number / tensor in PyTorch multiplies by the reciprocal instead, which
+    # is one ulp off for some maxima and flips a code in ten thousand
+    top = torch.full_like(qm, 127.0)
+    return qm, km, torch.round(qf * (top / qm)), torch.round(kf * (top / km))
 
 
 def _int8_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -40,14 +61,22 @@ def _int8_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor
     and k.  The codes go through an f32 matmul, which is exact here: every
     product is at most 127**2 and a sum of hd <= 128 of them stays below
     2**24 (TF32 must be off, as it is by default for matmuls)."""
-    qf = q.float() * scale
-    kf = k.float()
-    qm = qf.abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1e-12)
-    km = kf.abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1e-12)
-    qi = torch.round(qf * (127.0 / qm))
-    ki = torch.round(kf * (127.0 / km))
+    qm, km, qi, ki = _quantise(q, k, scale)
     si = torch.einsum("bhld,bhmd->bhlm", qi, ki)
     return si * (qm * km / (127.0 * 127.0))
+
+
+def quantise_qk_plain(qkv: torch.Tensor, heads: int, scale: float):
+    """Plain version of K1-i8's pre-pass: (absmax [B, heads, 2] f32 holding
+    max|q * scale| and max|k| of each head, codes [B, L, 2C] int8 holding the
+    codes of q * scale | k laid out as the first two thirds of a qkv row)."""
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    q, k = (t.reshape(B, L, heads, C // heads).transpose(1, 2)
+            for t in qkv.split(C, dim=-1)[:2])
+    qm, km, qi, ki = _quantise(q, k, scale)
+    codes = torch.cat([t.transpose(1, 2).reshape(B, L, C) for t in (qi, ki)], dim=-1)
+    return torch.cat([qm, km], dim=-1).reshape(B, heads, 2), codes.to(torch.int8)
 
 
 def reference_mha(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
@@ -76,10 +105,37 @@ def kernel_entry(head_dim: int, qk_int8: bool) -> str:
     if head_dim not in (16, 32, 64, 128):
         raise ValueError(f"head dim {head_dim} not in (16, 32, 64, 128)")
     if qk_int8:
-        return "oryon_fused_mha_lanes_i8qk_bf16"
+        return ("oryon_fused_mha_lanes_i8qk_wgmma_bf16" if head_dim == 64
+                else "oryon_fused_mha_lanes_i8qk_bf16")
     if head_dim == 64:
         return "oryon_fused_mha_lanes_wgmma_bf16"
     return "oryon_fused_mha_lanes_bf16"
+
+
+def _i8_scratch(qkv: torch.Tensor, heads: int):
+    """What K1-i8's pre-pass writes and its attention kernel reads: absmax
+    [B, heads, 2] f32 and, at head dimension 64, the codes [B, L, 2C] int8."""
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    absmax = torch.empty((B, heads, 2), dtype=torch.float32, device=qkv.device)
+    codes = torch.empty((B, L, 2 * C) if C // heads == 64 else (0,),
+                        dtype=torch.int8, device=qkv.device)
+    return absmax, codes
+
+
+def run_i8_phases(qkv: torch.Tensor, kmask: torch.Tensor, heads: int, scale: float,
+                  phases: int, absmax: torch.Tensor, codes: torch.Tensor,
+                  out: torch.Tensor) -> None:
+    """One or both phases of K1-i8 at head dimension 64 on a CUDA device, on
+    scratch and output the caller holds (``_i8_scratch``): ``PREPASS`` fills
+    absmax and codes, ``ATTEND`` reads them.  For holding and timing the
+    phases apart; counts no launch and checks no argument."""
+    B, L, C3 = qkv.shape
+    err = _lib.library().oryon_fused_mha_lanes_i8qk_wgmma_bf16(
+        qkv.data_ptr(), kmask.data_ptr(), absmax.data_ptr(), codes.data_ptr(),
+        out.data_ptr(), B, L, C3 // 3, heads, float(scale), phases,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _lib.check(err, f"K1-i8 phases {phases}")
 
 
 def _launch(lib, qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
@@ -92,10 +148,13 @@ def _launch(lib, qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     fn = getattr(lib, kernel_entry(C // heads, qk_int8))
     out = torch.empty((B, L, C), dtype=qkv.dtype, device=qkv.device)
     if qk_int8:
-        # per-(image, head) max|q * scale| and max|k|, written by the pre-pass
-        absmax = torch.empty((B, heads, 2), dtype=torch.float32, device=qkv.device)
-        err = fn(qkv.data_ptr(), kmask.data_ptr(), absmax.data_ptr(), out.data_ptr(),
-                 B, L, C, heads, float(scale), stream)
+        absmax, codes = _i8_scratch(qkv, heads)
+        if C // heads == 64:
+            err = fn(qkv.data_ptr(), kmask.data_ptr(), absmax.data_ptr(), codes.data_ptr(),
+                     out.data_ptr(), B, L, C, heads, float(scale), PREPASS | ATTEND, stream)
+        else:
+            err = fn(qkv.data_ptr(), kmask.data_ptr(), absmax.data_ptr(), out.data_ptr(),
+                     B, L, C, heads, float(scale), stream)
         _lib.check(err, "fused_mha_lanes_qkv(qk_int8=True)")
         launches_i8 += 1
     else:

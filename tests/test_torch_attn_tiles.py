@@ -1,5 +1,5 @@
-"""The arithmetic of the wgmma attention kernel (K1 and K5 at head dimension
-64) and the wrappers' choice of kernel by shape, on the CPU.
+"""The arithmetic of the wgmma attention kernel (K1, K1-i8 and K5 at head
+dimension 64) and the wrappers' choice of kernel by shape, on the CPU.
 
 The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).  What can be held here is its arithmetic: a pure-PyTorch
@@ -11,7 +11,9 @@ Tolerances: 2e-2 in bf16, the kernel tolerance on the card (KERNEL_TOL): the
 plain versions round the logits or the normalised weights to bf16 where the
 kernel keeps f32 and rounds unnormalised weights, about one bf16 ulp of an
 output in [2, 4); 1e-5 in f32, where only the order of sums and exp2 against
-exp differ.
+exp differ.  K1-i8: the same 2e-2 (the int8 codes and the int32 sums are
+identical on both sides, the rest is K1's); the codes themselves must be
+equal, entry for entry.
 """
 import re
 from pathlib import Path
@@ -21,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (pallas_interpret, tiled_attention_model,
+from _torch_helpers import (StubLib, pallas_interpret, quantise_model, tiled_attention_model,
                             tiled_attention_model_packed)
 
 TOL = {"bf16": 2e-2, "f32": 1e-5}
@@ -89,6 +91,78 @@ def test_k1_tile_model_matches_pallas_kernel(case, prec):
                  HD ** -0.5, True)
     got = tiled_attention_model_packed(qkv, kmask, HEADS, HD ** -0.5)
     assert _max_err(got.float(), np.asarray(ref.astype(jnp.float32))) < TOL[prec]
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k1i8_prepass_codes_equal_the_plain_versions(case):
+    """The model of the quantising pre-pass and ``quantise_qk_plain`` give
+    the same absmax and the same int8 codes, exactly: both multiply in the
+    reference's order, divide 127 by the maximum and round half to even."""
+    from oryon_tpu_torch.ops.cuda.mha_lanes import quantise_qk_plain
+
+    qkv, _, _, _ = _k1_inputs(case, "bf16")
+    B, L, _ = qkv.shape
+    C = HEADS * HD
+    absmax, codes = quantise_qk_plain(qkv, HEADS, HD ** -0.5)
+    q, k = (t.reshape(B, L, HEADS, HD).transpose(1, 2) for t in qkv.split(C, dim=-1)[:2])
+    qm, km, qi, ki = quantise_model(q, k, HD ** -0.5)
+    assert absmax.shape == (B, HEADS, 2) and codes.shape == (B, L, 2 * C)
+    assert codes.dtype == torch.int8
+    assert torch.equal(absmax[..., 0], qm[..., 0, 0]) and torch.equal(absmax[..., 1], km[..., 0, 0])
+    assert torch.equal(codes[..., :C], qi.transpose(1, 2).reshape(B, L, C))
+    assert torch.equal(codes[..., C:], ki.transpose(1, 2).reshape(B, L, C))
+    assert int(codes.abs().max()) == 127       # the slab's maximum maps to +-127
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k1i8_tile_model_matches_plain_version(case):
+    """The int8 mode's arithmetic (codes from the pre-pass, int32 tile sums
+    made floats by the magic constant, descale folded with log2 e into the
+    mask's FMA, exp2) against ``reference_mha(qk_int8=True)``: 2e-2 at bf16,
+    as for K1, since the codes and the int32 sums are the same on both
+    sides."""
+    from oryon_tpu_torch.ops.cuda.mha_lanes import reference_mha
+
+    qkv, kmask, _, _ = _k1_inputs(case, "bf16")
+    got = tiled_attention_model_packed(qkv, kmask, HEADS, HD ** -0.5, qk_int8=True)
+    ref = reference_mha(qkv, kmask, HEADS, HD ** -0.5, qk_int8=True)
+    assert torch.isfinite(got.float()).all()
+    assert _max_err(got.float(), ref.float()) < TOL["bf16"]
+
+
+@pytest.mark.parametrize("case", ["640-577real", "640-lead-tile-masked"])
+def test_k1i8_tile_model_matches_pallas_kernel(case):
+    """The same against the TPU kernel's int8 branch in interpret mode (L a
+    multiple of 128): 2e-2 at bf16."""
+    from oryon_tpu.ops.pallas.mha_lanes import fused_mha_lanes_qkv as jax_k1
+
+    qkv, kmask, qkv_np, kmask_np = _k1_inputs(case, "bf16")
+    ref = jax_k1(jnp.asarray(qkv_np).astype(jnp.bfloat16), jnp.asarray(kmask_np), HEADS,
+                 HD ** -0.5, True, True)
+    got = tiled_attention_model_packed(qkv, kmask, HEADS, HD ** -0.5, qk_int8=True)
+    assert _max_err(got.float(), np.asarray(ref.astype(jnp.float32))) < TOL["bf16"]
+
+
+def test_k1i8_magic_constant_is_one_shift_of_the_live_logits():
+    """The int8 logits through the magic-constant FMA against the direct
+    form float(si) * descale + mask: equal to 1e-4 in log2 units up to one
+    shift per (image, head), which a softmax does not see."""
+    import math
+
+    from _torch_helpers import MAGIC, MAGIC_BITS
+    qkv, _, _, _ = _k1_inputs("65", "bf16")
+    B, L, _ = qkv.shape
+    C = HEADS * HD
+    q, k = (t.reshape(B, L, HEADS, HD).transpose(1, 2) for t in qkv.split(C, dim=-1)[:2])
+    qm, km, qi, ki = quantise_model(q, k, HD ** -0.5)
+    si = torch.einsum("bhld,bhmd->bhlm", qi.int(), ki.int())
+    assert int(si.abs().max()) < 2 ** 22
+    mul = (qm * km) / torch.tensor(127.0 * 127.0) * torch.tensor(math.log2(math.e))
+    direct = si.float() * mul
+    x = (si + MAGIC_BITS).view(torch.float32)
+    folded = (x.double() * mul.double() + (-MAGIC * mul.double()).float().double()).float()
+    shift = (folded - direct).mean(dim=(-2, -1), keepdim=True)
+    assert float((folded - direct - shift).abs().max()) < 1e-4
 
 
 # name -> (B, L, real tokens or None = no segments, leading tile a segment of its own)
@@ -164,34 +238,23 @@ def test_tile_size_does_not_change_the_result_beyond_rounding(tile):
     assert _max_err(got, whole) < 1e-5
 
 
-class _StubLib:
-    """Stands in for the kernel library: records which C entry point a
-    wrapper called and reports success."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append((name, len(args)))
-            return 0
-        return entry
-
-
 @pytest.mark.parametrize("hd,qk_int8,entry", [
     (64, False, "oryon_fused_mha_lanes_wgmma_bf16"),
     (32, False, "oryon_fused_mha_lanes_bf16"),
     (16, False, "oryon_fused_mha_lanes_bf16"),
     (128, False, "oryon_fused_mha_lanes_bf16"),
-    (64, True, "oryon_fused_mha_lanes_i8qk_bf16"),
-    (32, True, "oryon_fused_mha_lanes_i8qk_bf16")])
+    (64, True, "oryon_fused_mha_lanes_i8qk_wgmma_bf16"),
+    (32, True, "oryon_fused_mha_lanes_i8qk_bf16"),
+    (16, True, "oryon_fused_mha_lanes_i8qk_bf16"),
+    (128, True, "oryon_fused_mha_lanes_i8qk_bf16")])
 def test_k1_wrapper_chooses_the_kernel_by_shape(hd, qk_int8, entry):
-    """Head dimension 64 with bf16 logits goes to the wgmma kernel, every
-    other head dimension to the WMMA kernel, int8 logits to K1-i8 at every
-    head dimension; one launch is counted on the right counter."""
+    """Head dimension 64 goes to the wgmma kernel, with bf16 logits and
+    with int8 logits (the entry that also runs the quantising pre-pass);
+    every other head dimension to the WMMA kernel; one launch is counted on
+    the right counter."""
     from oryon_tpu_torch.ops.cuda import _lib, mha_lanes
 
-    stub = _StubLib()
+    stub = StubLib()
     qkv = torch.zeros(1, 8, 3 * 2 * hd, dtype=torch.bfloat16)
     before = (mha_lanes.launches, mha_lanes.launches_i8)
     out = mha_lanes._launch(stub, qkv, torch.zeros(8), 2, hd ** -0.5, qk_int8, 0)
@@ -209,7 +272,7 @@ def test_k1_wrapper_chooses_the_kernel_by_shape(hd, qk_int8, entry):
 def test_k5_wrapper_chooses_the_kernel_by_shape(D, entry):
     from oryon_tpu_torch.ops.cuda import _lib, flash
 
-    stub = _StubLib()
+    stub = StubLib()
     q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
     before = flash.launches
     out = flash._launch(stub, q, q, q, D ** -0.5, None, 0)
@@ -238,10 +301,20 @@ def test_every_entry_point_is_defined_once_in_the_sources():
         hits = [f for f, src in text.items()
                 if re.search(r'extern "C" int ' + name + r"\(", src)]
         assert len(hits) == 1, (name, hits)
-    for name, src, launcher in (("oryon_fused_mha_lanes_wgmma_bf16", "mha_lanes.cu", "launch_packed"),
-                                ("oryon_flash_mha_wgmma_bf16", "flash.cu", "launch_split")):
+    for name, src, launcher in (
+            ("oryon_fused_mha_lanes_wgmma_bf16", "mha_lanes.cu", "oryon_attn_wg::launch_packed("),
+            ("oryon_fused_mha_lanes_i8qk_wgmma_bf16", "mha_lanes.cu",
+             "oryon_attn_wg::launch_packed_i8("),
+            ("oryon_flash_mha_wgmma_bf16", "flash.cu", "oryon_attn_wg::launch_split("),
+            ("oryon_masked_argmin_wgmma_bf16", "match_kernel.cu", "oryon_match_wg::launch(")):
         body = text[src].split(name + "(")[1].split("\n}\n")[0]
-        assert f"oryon_attn_wg::{launcher}" in body
+        assert launcher in body
+    # the int8 entry runs the quantising pre-pass itself
+    body = text["mha_lanes.cu"].split("oryon_fused_mha_lanes_i8qk_wgmma_bf16(")[1]
+    assert "qk_absmax_kernel<64>" in body and "qk_quantise_kernel" in body
     header = (Path(_lib.CSRC) / "attn_wgmma.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in header
-    assert "cp.async.bulk.tensor.3d" in header
+    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in header
+    match = (Path(_lib.CSRC) / "match_wgmma.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in match
+    assert "cp.async.bulk.tensor.3d" in (Path(_lib.CSRC) / "hopper.cuh").read_text()

@@ -84,29 +84,118 @@ def test_argmin_kernel_matches_plain(cuda, precision):
         assert same >= 0.99
 
 
+def _argmin_case(rs, device, P, S, N, kind):
+    src = torch.from_numpy(_unit(rs.randn(P, S, 32)).astype(np.float32))
+    tgt = torch.from_numpy(_unit(rs.randn(P, N, 32)).astype(np.float32))
+    bad = torch.from_numpy(rs.rand(P, N) < 0.4)
+    if kind == "edges":
+        # pair 0: everything excluded; pair 1: one target kept; pair 2:
+        # nothing excluded; pair 3: the best target of rows 0-39 three times
+        bad[0] = True
+        bad[1] = True
+        bad[1, N // 2] = False
+        bad[2] = False
+        tgt[3, 200:240] = tgt[3, 60:100]
+        tgt[3, N - 40:] = tgt[3, 60:100]
+        bad[3, 60:100] = bad[3, 200:240] = bad[3, N - 40:] = False
+        src[3, :40] = tgt[3, 60:100]
+    elif kind == "sparse":
+        bad = torch.from_numpy(rs.rand(P, N) < 0.95)
+    return src.to(device), tgt.to(device), bad.to(device)
+
+
+# P, S, N, kind: S and N off the tiles of 128, a single tile, the edge pairs
+ARGMIN_BF16_CASES = [(3, 700, 1000, "random"), (4, 333, 1001, "edges"), (2, 64, 128, "random"),
+                     (1, 1, 1, "random"), (2, 130, 4097, "sparse"), (4, 128, 640, "edges")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,S,N,kind", ARGMIN_BF16_CASES)
+def test_argmin_wgmma_kernel_matches_plain(cuda, P, S, N, kind):
+    """K2's tensor-core kernel (bf16 mode) vs the plain version: minima
+    within 1e-5, argmins identical except at near-ties (the two plain
+    distances within 1e-6); all excluded gives (+inf, 0), one kept gives it,
+    duplicated targets give the lowest index; the pre-pass's rows, map and
+    counts equal the plain compaction's; two launches bitwise equal."""
+    from oryon_tpu_torch.ops.cuda import match_kernel as mk
+
+    src, tgt, bad = _argmin_case(np.random.RandomState(6), cuda, P, S, N, kind)
+    md, am = mk.masked_argmin(src, tgt, bad, "bf16")
+    md2, am2 = mk.masked_argmin(src, tgt, bad, "bf16")
+    pm, pa = mk.masked_argmin_plain(src, tgt, bad, "bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(md, md2) and torch.equal(am, am2)
+    finite = torch.isfinite(pm)
+    assert torch.equal(torch.isfinite(md), finite)
+    assert torch.equal(md[~finite], pm[~finite]) and (am[~finite] == 0).all()
+    assert (md[finite] - pm[finite]).abs().max().item() < 1e-5 if finite.any() else True
+    s16, t16 = src.bfloat16().float(), tgt.bfloat16().float()
+    for p, s in torch.nonzero(am != pa).tolist():
+        d = 0.5 * (1.0 - t16[p] @ s16[p, s])
+        assert not bad[p, am[p, s]]
+        assert abs((d[am[p, s]] - d[pa[p, s]]).item()) <= 1e-6
+    if kind == "edges":
+        assert (am[1] == N // 2).all()
+        assert torch.equal(am[3, :40].cpu(), torch.arange(60, 100, dtype=torch.int32))
+    scratch = mk._bf16_scratch(src, tgt)
+    mk.run_bf16_phases(src, tgt, bad, mk.COMPACT, scratch, md2, am2)
+    torch.cuda.synchronize()
+    r16, rmap, rcount = mk.compact_targets_plain(tgt, bad)
+    assert torch.equal(scratch[2], rcount)
+    for p in range(P):
+        n = int(rcount[p])
+        assert torch.equal(scratch[0][p, :n], r16[p, :n]) and torch.equal(scratch[1][p, :n], rmap[p, :n])
+
+
 def _bf16(rs, *shape, device):
     return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device, torch.bfloat16)
 
 
+# B, L, heads, head dim, first padded key, keys 0-63 masked too.  Head dim 64
+# runs the int8 wgmma kernel behind the quantising pre-pass, 16 / 32 / 128
+# the WMMA kernel.
+MHA_I8_CASES = [(2, 256, 4, 16, 200, False),
+                (1, 640, 16, 64, 577, False),
+                (2, 130, 8, 32, 100, False),
+                (1, 70, 2, 128, 70, False),
+                (2, 640, 4, 64, 640, False),    # whole tiles, nothing masked
+                (2, 640, 4, 64, 577, True),     # a fully masked leading key tile
+                (3, 577, 16, 64, 560, False),   # ragged L
+                (2, 65, 2, 64, 65, False),
+                (1, 1, 2, 64, 1, False),
+                (2, 63, 2, 64, 40, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,H,hd,real", [(2, 256, 4, 16, 200),
-                                           (1, 640, 16, 64, 577),
-                                           (2, 130, 8, 32, 100),
-                                           (1, 70, 2, 128, 70)])
-def test_mha_int8_kernel_matches_plain(cuda, B, L, H, hd, real):
+@pytest.mark.parametrize("B,L,H,hd,real,lead", MHA_I8_CASES)
+def test_mha_int8_kernel_matches_plain(cuda, B, L, H, hd, real, lead):
     """K1-i8 vs its plain version: the int8 codes and int32 sums are the
     same on both sides, so K1's tolerance holds (2e-2: bf16 exponentials,
-    deferred normalisation, bf16 output)."""
+    deferred normalisation, bf16 output).  Two launches bitwise equal; at
+    head dim 64 the pre-pass alone gives the plain version's absmax and
+    codes exactly."""
     from oryon_tpu_torch.ops.cuda import mha_lanes
 
     qkv = _bf16(np.random.RandomState(2), B, L, 3 * H * hd, device=cuda)
-    m = torch.where(torch.arange(L) < real, 0.0, -1e9).to(cuda)
+    m = torch.where(torch.arange(L) < real, 0.0, -1e9)
+    if lead:
+        m[:64] = -1e9
+    m = m.to(cuda)
     before = mha_lanes.launches_i8
     got = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, hd ** -0.5, qk_int8=True)
+    again = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, hd ** -0.5, qk_int8=True)
     ref = mha_lanes.reference_mha(qkv, m, H, hd ** -0.5, qk_int8=True)
     torch.cuda.synchronize()
-    assert mha_lanes.launches_i8 == before + 1
+    assert mha_lanes.launches_i8 == before + 2
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
+    if hd == 64:
+        absmax, codes = mha_lanes._i8_scratch(qkv, H)
+        mha_lanes.run_i8_phases(qkv, m, H, hd ** -0.5, mha_lanes.PREPASS, absmax, codes, again)
+        torch.cuda.synchronize()
+        ref_absmax, ref_codes = mha_lanes.quantise_qk_plain(qkv, H, hd ** -0.5)
+        assert torch.equal(absmax, ref_absmax) and torch.equal(codes, ref_codes)
 
 
 # B, heads, L, head dim, real tokens (None = no segment ids), keys 0-63 a

@@ -8,8 +8,9 @@
 Phases, each printing one line with its result and its time:
   1. device    the card (torch and nvidia-smi); fails without CUDA
   2. build     nvcc builds the kernels from oryon_tpu_torch/csrc/; the
-               machine code of the wgmma kernels holds tensor-core (HGMMA;
-               IGMMA for K1-i8's int8 logits) and TMA-load instructions
+               machine code of the wgmma kernels (attention, matcher, window
+               attention) holds tensor-core (HGMMA; IGMMA for K1-i8's int8
+               logits) and TMA-load instructions
   3. k1        fused attention kernel (wgmma, head dim 64) vs its plain
                version at the ViT-L shape and at the edges of its tiling
                (L = 640, 65, 1, one image, a fully masked leading key tile),
@@ -21,8 +22,13 @@ Phases, each printing one line with its result and its time:
                exactly; pre-pass and attention kernel timed apart
   5. k5        flash attention on [B, H, L, D] with segment ids, the same
                edges and a head-dim-32 case
-  6. k3, k4    Swin window attention, packed windows and map-level, at both
-               Swin-B stages with a shifted-window mask in the bias
+  6. k3, k4    Swin window attention, packed windows and map-level (wgmma at
+               head dim 32 behind a bias pre-pass), at both Swin-B stages,
+               shifted and unshifted, and at the edges of the tiling (one
+               window, fewer items than persistent blocks, more than one
+               round, 16- and 64-token windows, head dims 16 and 64 on the
+               WMMA kernel); the pre-pass alone gives its plain version's
+               fragments exactly; pre-pass and attention kernel timed apart
   7. k2        masked-argmin kernels vs their plain version at the serving
                shape: fp32 (CUDA cores) and bf16 (compacting pre-pass + wgmma),
                40% and 95% of the targets excluded, ragged sizes, pairs with
@@ -172,6 +178,24 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time of fn() with the launch queue kept full: a sleeping
+    kernel of about 2 ms goes first, the host enqueues every call behind it,
+    and the events then bracket back-to-back device work.  For kernels whose
+    device time is near the host time of their wrapper call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def same_twice(torch, fn, what: str) -> None:
     """Two launches on the same inputs give bitwise the same output."""
     a, b = fn(), fn()
@@ -211,8 +235,9 @@ SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")   # bf16 wgmma, int8 wgmma, TMA tile lo
 
 def _sass_counts(nvcc: str, lib_path: str):
     """Per wgmma kernel in the built library (the attention kernel's three
-    modes and the matcher's), how many instructions of each of SASS_OPS its
-    machine code holds; None where the toolkit has no cuobjdump."""
+    modes, the matcher's and the window attention's two), how many
+    instructions of each of SASS_OPS its machine code holds; None where the
+    toolkit has no cuobjdump."""
     import os
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -224,7 +249,8 @@ def _sass_counts(nvcc: str, lib_path: str):
     counts = {}
     for chunk in out.stdout.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "attn_wgmma_kernel" in name or "match_wgmma_kernel" in name:
+        if any(k in name for k in ("attn_wgmma_kernel", "match_wgmma_kernel",
+                                   "swin_wgmma_kernel")):
             counts[name] = tuple(chunk.count(op) for op in SASS_OPS)
     return counts
 
@@ -242,11 +268,14 @@ def phase_build():
     sass = _sass_counts(_lib._nvcc(), info["path"])
     if sass is not None:
         # attn_wgmma_kernel<mode, ...>: 0 K1, 1 K5, 2 K1-i8 (int8 Q K^T, bf16
-        # P V); match_wgmma_kernel: K2.  All load their tiles by TMA.
+        # P V); match_wgmma_kernel: K2; swin_wgmma_kernel<band, ...>: false
+        # K3, true K4.  All load their tiles by TMA.
         want = {"K1": ("attn_wgmma_kernelILi0E", ("HGMMA",)),
                 "K5": ("attn_wgmma_kernelILi1E", ("HGMMA",)),
                 "K1-i8": ("attn_wgmma_kernelILi2E", ("HGMMA", "IGMMA")),
-                "K2": ("match_wgmma_kernel", ("HGMMA",))}
+                "K2": ("match_wgmma_kernel", ("HGMMA",)),
+                "K3": ("swin_wgmma_kernelILb0E", ("HGMMA",)),
+                "K4": ("swin_wgmma_kernelILb1E", ("HGMMA",))}
         check(len(sass) == len(want), f"wgmma kernels in the library: {sorted(sass)}")
         found = {}
         for label, (key, ops) in want.items():
@@ -455,14 +484,15 @@ def phase_k5(torch, iters):
     return res
 
 
-def _swin_case(torch, g, side, C, heads, shifted: bool):
-    """Window-attention inputs of one Swin-B stage: the qkv map of 16 images
-    and the combined bias (relative-position bias + shift mask)."""
+def _swin_case(torch, g, side, C, heads, shifted: bool, images=None, w=None):
+    """Window-attention inputs: the qkv map of ``images`` images (16, one
+    Swin-B stage, unless given) and the combined bias (relative-position bias
+    + shift mask)."""
     from oryon_tpu_torch.models.swin import shift_attention_mask
-    w = SWIN_WINDOW
+    w = SWIN_WINDOW if w is None else w
     N, nw = w * w, (side // w) ** 2
-    qkv_map = torch.randn((SWIN_IMAGES, side, side, 3 * C), generator=g,
-                          device=DEVICE).to(torch.bfloat16)
+    qkv_map = torch.randn((SWIN_IMAGES if images is None else images, side, side, 3 * C),
+                          generator=g, device=DEVICE).to(torch.bfloat16)
     bias = 0.5 * torch.randn((1, heads, N, N), generator=g, device=DEVICE)
     bias = bias.expand(nw, heads, N, N)
     if shifted:
@@ -479,10 +509,26 @@ def _sdpa_windows(torch, q, k, v, mask16, heads):
     return out.transpose(1, 2).reshape(Bw, N, C)
 
 
-def _swin_phase(torch, iters, name, run_kernel, run_plain, prepare, run_library):
+# Edges of the wgmma window kernel's tiling (one warpgroup a (window, head),
+# persistent blocks): (images, map side, C, heads, window, shifted).  The
+# head-dim-16 and -64 cases run the WMMA kernel.
+SWIN_EDGES = (("one window", 1, 7, 32, 1, 7, False),
+              ("fewer items than blocks", 2, 14, 128, 4, 7, True),
+              ("1215 items, 3 heads", 5, 63, 96, 3, 7, True),
+              ("w=4", 2, 8, 64, 2, 4, True),
+              ("w=8", 2, 16, 256, 8, 8, False))
+SWIN_OTHER_HD = (("hd=16", 3, 21, 32, 2, 7, True), ("hd=64", 1, 7, 128, 2, 7, False))
+
+
+def _swin_phase(torch, iters, name, run_kernel, run_plain, prepare, run_library, phases,
+                frag_dtype):
     """K3 or K4 at both stages, unshifted (numerics) and shifted (numerics
-    and times).  ``prepare(qkv_map)`` gives the kernel's input tensors;
-    ``run_library(*inputs, mask16, heads)`` is the PyTorch yardstick."""
+    and times), and at the edges.  ``prepare(qkv_map, w)`` gives the kernel's
+    input tensors; the kernel and the plain version take (*inputs, bias,
+    heads, w, scale); ``run_library(*inputs, mask16, heads)`` is the PyTorch
+    yardstick; ``phases(*inputs, bias, heads, scale, which, frag, out)`` runs
+    the bias pre-pass or the attention kernel alone."""
+    from oryon_tpu_torch.ops.cuda import swin_attn
     g = torch.Generator(device=DEVICE).manual_seed(8)
     w = SWIN_WINDOW
     N = w * w
@@ -492,28 +538,66 @@ def _swin_phase(torch, iters, name, run_kernel, run_plain, prepare, run_library)
         scale = hd ** -0.5
         for shifted in (False, True):
             qkv_map, bias = _swin_case(torch, g, side, C, heads, shifted)
-            inputs = prepare(qkv_map)
-            got = run_kernel(*inputs, bias, heads, scale)
-            ref = run_plain(*inputs, bias, heads, scale)
+            inputs = prepare(qkv_map, w)
+            got = run_kernel(*inputs, bias, heads, w, scale)
+            ref = run_plain(*inputs, bias, heads, w, scale)
             err = max(err, compare(torch, got, ref,
                                    f"{name} {side}x{side}x{C} shifted={shifted}"))
+
+        def kernel():
+            return run_kernel(*inputs, bias, heads, w, scale)
+        same_twice(torch, kernel, f"{name} {side}x{side}x{C}")
+        # the pre-pass on its own: the plain version's fragments, exactly
+        frag = swin_attn._frag_scratch(bias, frag_dtype)
+        out = torch.empty_like(got)
+
+        def run(which):
+            return lambda: phases(*inputs, bias, heads, scale, which, frag, out)
+        run(swin_attn.BIAS)()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(frag, swin_attn.bias_fragments_plain(bias, frag_dtype))),
+              f"{name} pre-pass: the bias fragments differ from the plain version's")
+        run(swin_attn.ATTEND)()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, got)), f"{name}: the phases run apart differ from the one call")
         Bw = SWIN_IMAGES * (side // w) ** 2
         mask16 = bias.to(torch.bfloat16).repeat(SWIN_IMAGES, 1, 1, 1)
-        r = timed(lambda: run_kernel(*inputs, bias, heads, scale),
-                  lambda: run_plain(*inputs, bias, heads, scale),
+        r = timed(kernel, lambda: run_plain(*inputs, bias, heads, w, scale),
                   lambda: run_library(*inputs, mask16, heads), iters)
+        # the device time of a call is near the host time of the wrapper: the
+        # kernel's time is the one taken with the launch queue kept full
+        r["loop_ms"], r["ms"] = r["ms"], queued_ms(kernel, iters)
+        r["prepass_ms"] = queued_ms(run(swin_attn.BIAS), iters)
+        r["attend_ms"] = queued_ms(run(swin_attn.ATTEND), iters)
+        r["host_us"] = host_us(kernel)
         # per window and head two N x N x hd products; the bias once
         r.update(bound(nbytes(*inputs, bias, got),
                        {"bf16": 4 * Bw * heads * N * N * hd}))
         stages.append(r)
         del mask16
+
+    def case(images, side, C, heads, w, shifted):
+        qkv_map, bias = _swin_case(torch, g, side, C, heads, shifted, images, w)
+        inputs = prepare(qkv_map, w)
+        scale = (C // heads) ** -0.5
+        return (run_kernel(*inputs, bias, heads, w, scale),
+                run_plain(*inputs, bias, heads, w, scale))
+    edge_err = max(compare(torch, *case(*c), f"{name} {label}") for label, *c in SWIN_EDGES)
+    other_err = max(compare(torch, *case(*c), f"{name} {label}") for label, *c in SWIN_OTHER_HD)
     res = {k: sum(r[k] for r in stages) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     res.update(err=err, bound_by=stages[0]["bound_by"], stages=stages)
     res["line"] = (f"16 images, shifted windows: max abs err {err:.3e} (tol {KERNEL_TOL}); "
                    + "; ".join(f"stage {i + 1} [{side}x{side}, C={C}, {heads} heads] "
-                               f"{times_txt(r)}"
+                               f"{times_txt(r)}; kernel = {r['ms']:.4f} ms with the launch "
+                               f"queue kept full = pre-pass {r['prepass_ms']:.4f} (fragments "
+                               f"equal the plain version's) + attention kernel "
+                               f"{r['attend_ms']:.4f}; {r['loop_ms']:.4f} ms a call at the "
+                               f"host's pace, host {r['host_us']:.1f} us per wrapper call"
                                for i, (r, (side, C, heads)) in enumerate(zip(stages, SWIN_STAGES)))
-                   + "; both stages: " + times_txt(res))
+                   + "; both stages: " + times_txt(res)
+                   + f"; edges ({', '.join(n for n, *_ in SWIN_EDGES)}) max abs err "
+                     f"{edge_err:.3e}, {' and '.join(n for n, *_ in SWIN_OTHER_HD)} on the WMMA "
+                     f"kernel {other_err:.3e}, two launches bitwise equal")
     return res
 
 
@@ -522,14 +606,20 @@ def phase_k3(torch, iters):
     from oryon_tpu_torch.models.swin import window_partition
     from oryon_tpu_torch.ops.cuda import swin_attn
 
-    def prepare(qkv_map):
-        wins = window_partition(qkv_map, SWIN_WINDOW)
+    def prepare(qkv_map, w):
+        wins = window_partition(qkv_map, w)
         return tuple(t.contiguous() for t in wins.chunk(3, dim=-1))
+
+    def kernel(q, k, v, bias, heads, w, scale):
+        return swin_attn.packed_window_attention(q, k, v, bias, heads, scale)
+
+    def plain(q, k, v, bias, heads, w, scale):
+        return swin_attn.packed_window_attention_plain(q, k, v, bias, heads, scale)
 
     def library(q, k, v, mask16, heads):
         return _sdpa_windows(torch, q, k, v, mask16, heads)
-    return _swin_phase(torch, iters, "K3", swin_attn.packed_window_attention,
-                       swin_attn.packed_window_attention_plain, prepare, library)
+    return _swin_phase(torch, iters, "K3", kernel, plain, prepare, library,
+                       swin_attn.run_packed_phases, torch.bfloat16)
 
 
 @phase("k4")
@@ -537,19 +627,18 @@ def phase_k4(torch, iters):
     from oryon_tpu_torch.models.swin import window_partition, window_reverse
     from oryon_tpu_torch.ops.cuda import swin_attn
 
-    def kernel(qkv_map, bias, heads, scale):
-        return swin_attn.band_window_attention(qkv_map, bias, heads, SWIN_WINDOW, scale)
-
-    def plain(qkv_map, bias, heads, scale):
-        return swin_attn.band_window_attention_plain(qkv_map, bias, heads, SWIN_WINDOW, scale)
-
     def library(qkv_map, mask16, heads):
         # partition, one attention call, reverse: together the same function
         B, side = qkv_map.shape[:2]
         q, k, v = window_partition(qkv_map, SWIN_WINDOW).chunk(3, dim=-1)
         out = _sdpa_windows(torch, q, k, v, mask16, heads)
         return window_reverse(out, SWIN_WINDOW, B, side, side)
-    return _swin_phase(torch, iters, "K4", kernel, plain, lambda m: (m,), library)
+
+    def phases(qkv_map, bias, heads, scale, which, frag, out):
+        swin_attn.run_band_phases(qkv_map, bias, heads, SWIN_WINDOW, scale, which, frag, out)
+    return _swin_phase(torch, iters, "K4", swin_attn.band_window_attention,
+                       swin_attn.band_window_attention_plain, lambda m, w: (m,), library,
+                       phases, torch.float32)
 
 
 def _k2_gates(torch, mk, src, tgt, bad, prec: str, what: str) -> dict:

@@ -1,5 +1,6 @@
 // The Hopper pieces the wgmma kernels of this library share (attn_wgmma.cuh:
-// K1, K1-i8 and K5 at head dimension 64; match_wgmma.cuh: K2 in bf16 mode):
+// K1, K1-i8 and K5 at head dimension 64; match_wgmma.cuh: K2 in bf16 mode;
+// swin_wgmma.cuh: K3 and K4 at head dimension 32):
 // `mbarrier`s, TMA tile loads through tensor maps, shared-memory matrix
 // descriptors and the wgmma fences, as inline PTX, and the host-side encoding
 // of a tensor map.
@@ -72,6 +73,27 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
       : "memory");
 }
 
+// The same for a map of four dimensions: the box's rows land in shared memory
+// one after the other, c1 fastest, then c2 (a [w, w] patch of a feature map
+// becomes w * w consecutive rows).
+__device__ __forceinline__ void tma_load_tile4(uint32_t dst, const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1, int c2,
+                                               int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory writes visible to the
+// asynchronous proxy (TMA, wgmma operand reads) before a barrier hands the
+// memory over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
@@ -84,6 +106,11 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 // K values of a row are contiguous) advances its start address by 32 bytes
 // per wgmma k step (16 bf16 or 32 int8 values); tile bases are 1024-byte
 // aligned, so the step leaves the swizzle phase (address bits 7 and up) alone.
+// An MN-major B operand (a [keys, head dim] V tile read as it lies, with the
+// transposed-B bit of the instruction) takes the same descriptor: its rows are
+// the K values, 8-row groups the stride byte offset apart, and a k16 step
+// advances the start address by 16 rows (2048 bytes under the 128-byte
+// swizzle, 1024 under the 64-byte one).
 enum Swizzle { kSwizzle128 = 1, kSwizzle64 = 2 };
 
 template <int SWIZZLE>
@@ -135,30 +162,46 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A map over [planes, rows, cols] elements of `elem_bytes` (2: bf16, 1: int8
-// as bytes; strides in bytes) that loads boxes of [box_rows, box_cols] with
-// zero fill out of bounds.  A box row is one swizzle span: 128 bytes takes
-// the 128-byte swizzle, 64 bytes the 64-byte one.
-inline cudaError_t encode_map(CUtensorMap* map, const void* base, int elem_bytes,
-                              uint64_t cols, uint64_t rows, uint64_t planes,
-                              uint64_t row_bytes, uint64_t plane_bytes,
-                              uint32_t box_cols, uint32_t box_rows) {
+// A map over a tensor of `rank` (3 or 4) dimensions, dims[0] the contiguous
+// one, of elements of `elem_bytes` (2: bf16, 1: int8 as bytes); strides[i] is
+// the byte stride of dimension i + 1.  It loads boxes of box[] elements with
+// zero fill out of bounds.  A box row (box[0] elements) is one swizzle span:
+// 128 bytes takes the 128-byte swizzle, 64 bytes the 64-byte one.
+inline cudaError_t encode_map_nd(CUtensorMap* map, const void* base, int elem_bytes,
+                                 int rank, const uint64_t* dims,
+                                 const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
-  const uint32_t span = box_cols * elem_bytes;
-  if (span != 128 && span != 64) return cudaErrorInvalidValue;
-  const cuuint64_t dims[3] = {cols, rows, planes};
-  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
-  const cuuint32_t box[3] = {box_cols, box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const uint32_t span = box[0] * elem_bytes;
+  if ((span != 128 && span != 64) || rank < 3 || rank > 4) return cudaErrorInvalidValue;
+  cuuint64_t g_dims[4], g_strides[3];
+  cuuint32_t g_box[4];
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    g_dims[i] = dims[i];
+    g_box[i] = box[i];
+    if (i + 1 < rank) g_strides[i] = strides[i];
+  }
   const CUresult res = fn(
       map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-      3, const_cast<void*>(base), dims, strides, box, elem_strides,
+      rank, const_cast<void*>(base), g_dims, g_strides, g_box, elem_strides,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The three-dimensional form: a map over [planes, rows, cols] that loads
+// boxes of [box_rows, box_cols].
+inline cudaError_t encode_map(CUtensorMap* map, const void* base, int elem_bytes,
+                              uint64_t cols, uint64_t rows, uint64_t planes,
+                              uint64_t row_bytes, uint64_t plane_bytes,
+                              uint32_t box_cols, uint32_t box_rows) {
+  const uint64_t dims[3] = {cols, rows, planes};
+  const uint64_t strides[2] = {row_bytes, plane_bytes};
+  const uint32_t box[3] = {box_cols, box_rows, 1};
+  return encode_map_nd(map, base, elem_bytes, 3, dims, strides, box);
 }
 
 }  // namespace oryon_hopper

@@ -17,10 +17,27 @@
 // are exactly 0 after the f32 softmax.  Here every window is computed on
 // its own, so K3's `pack` argument has no counterpart.
 //
-// Design: one block of 8 warps per window and group of heads: all heads at
-// C = 128, four of the eight at C = 256, the most whose rows leave room for
-// two blocks on an SM (one resident block of 152 KB took 0.44 ms at stage 2,
-// two of 103 KB take 0.26 ms).  The block copies the window's 49 rows of
+// Two bodies, chosen by the wrapper by shape (ops/cuda/swin_attn.py,
+// `kernel_entry`):
+//
+//  * Head dimension 32, which every Swin variant has (Swin-B stage 1 is
+//    C = 128 / 4 heads, stage 2 C = 256 / 8 heads), windows of up to 64
+//    tokens: the wgmma kernel of swin_wgmma.cuh, entries
+//    oryon_packed_window_attention_wgmma_bf16 and
+//    oryon_band_window_attention_wgmma_bf16 at the end of this file.  One
+//    warpgroup computes a (window, head) whole out of registers (S, P and O
+//    never touch shared memory), the q, k, v tiles arrive by TMA into a ring
+//    (K4's through a 4-D map whose [w, w] box is the window partition),
+//    blocks are persistent, and a pre-pass lays the bias out in the order the
+//    accumulator registers hold the logits.  Its header says why.
+//  * Head dimensions 16 and 64: the WMMA kernel below, entries
+//    oryon_packed_window_attention_bf16 and oryon_band_window_attention_bf16,
+//    which takes head dimension 32 as well (the yardstick the sweep tool
+//    times the new body against).
+//
+// The WMMA body: one block of 8 warps per window and group of heads: all
+// heads at C = 128, four of the eight at C = 256, the most whose rows leave
+// room for two blocks on an SM.  The block copies the window's 49 rows of
 // q | k | v (its heads' columns) into shared memory with 16-byte loads, rows
 // 49..63 zeroed; K3 reads them from the window-partitioned [Bw, N, C]
 // tensors, K4 gathers them from the padded, rolled map [B, Hp, Wp, 3C] by
@@ -34,10 +51,9 @@
 // unlike K1), O[16, hd] = P V, and the real rows are written back as bf16,
 // to [Bw, N, C] (K3) or scattered to [B, Hp, Wp, C] (K4).  K3's bias arrives
 // rounded to bf16 (the reference rounds it), K4's stays f32: the two kernels
-// are one device function with a different row address and bias type.
-// Simple first: 16 warps an SM with long dependent chains per item, no
-// pipelining of the gather with the products (times on an H100 80GB HBM3 at
-// 700 W).
+// are one device function with a different row address and bias type.  S, P
+// and O pass through shared memory (half of a block's 103 KB), which keeps
+// an SM at 16 warps with long dependent chains per item.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +62,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "swin_wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -337,4 +355,61 @@ extern "C" int oryon_band_window_attention_bf16(
   p.Wp = Wp;
   p.scale = scale;
   return int(launch_hd<true>(p, B * p.nw, static_cast<cudaStream_t>(stream)));
+}
+
+// The phases of the wgmma entries: 1 lays the bias out in fragment order
+// (swin_wgmma.cuh) into the scratch `frag`, 2 runs the attention kernel, which
+// reads it on the same stream; 3 runs both, as every caller but a measurement
+// of one phase does.
+namespace {
+constexpr int kPhaseBias = 1, kPhaseAttend = 2;
+}
+
+// K3 at C / heads = 32 and N <= 64 (the wgmma kernel).  q, k, v, out
+// [Bw, N, C] bf16, 16-byte aligned; bias [nw, heads, N, N] f32 (rounded to
+// bf16 by the pre-pass); frag: scratch of nw * heads * 4096 bf16.
+extern "C" int oryon_packed_window_attention_wgmma_bf16(
+    const void* q, const void* k, const void* v, const void* bias, void* frag,
+    void* out, int Bw, int nw, int N, int C, int heads, float scale, int phases,
+    void* stream) {
+  namespace wg = oryon_swin_wg;
+  if (Bw <= 0 || nw <= 0 || Bw % nw != 0 || N <= 0 || N > wg::kRows || heads <= 0 ||
+      C != heads * wg::kHD || (phases & ~3) != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  if (phases & kPhaseBias) {
+    cudaError_t err = wg::launch_bias_fragments<__nv_bfloat16>(bias, frag, nw, heads, N, s);
+    if (err != cudaSuccess) return int(err);
+  }
+  if (phases & kPhaseAttend) {
+    return int(wg::launch_packed(q, k, v, frag, out, Bw, nw, N, C, heads, scale,
+                                 wg::kDefaultOrder, s));
+  }
+  return int(cudaSuccess);
+}
+
+// K4 at C / heads = 32 and window <= 8 (the wgmma kernel).  qkv_map
+// [B, Hp, Wp, 3C] bf16, 16-byte aligned; bias [nw, heads, N, N] f32; frag:
+// scratch of nw * heads * 4096 f32; out [B, Hp, Wp, C] bf16.
+extern "C" int oryon_band_window_attention_wgmma_bf16(
+    const void* qkv_map, const void* bias, void* frag, void* out, int B, int Hp,
+    int Wp, int C, int heads, int window, float scale, int phases, void* stream) {
+  namespace wg = oryon_swin_wg;
+  if (B <= 0 || window <= 0 || window * window > wg::kRows || Hp % window != 0 ||
+      Wp % window != 0 || heads <= 0 || C != heads * wg::kHD || (phases & ~3) != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  if (phases & kPhaseBias) {
+    const int nw = (Hp / window) * (Wp / window);
+    cudaError_t err =
+        wg::launch_bias_fragments<float>(bias, frag, nw, heads, window * window, s);
+    if (err != cudaSuccess) return int(err);
+  }
+  if (phases & kPhaseAttend) {
+    return int(wg::launch_band(qkv_map, frag, out, B, Hp, Wp, C, heads, window, scale,
+                               wg::kDefaultOrder, s));
+  }
+  return int(cudaSuccess);
 }

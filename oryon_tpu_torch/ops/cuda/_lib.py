@@ -45,6 +45,10 @@ SIGNATURES = {
                                            _I, _F, _P],
     "oryon_band_window_attention_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _F, _P],
+    "oryon_packed_window_attention_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                                 _I, _I, _F, _I, _P],
+    "oryon_band_window_attention_wgmma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                               _I, _F, _I, _P],
     "oryon_masked_argmin_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "oryon_masked_argmin_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _P],

@@ -150,6 +150,50 @@ def tiled_attention_model(q, k, v, scale: float, kmask=None, seg=None,
     return (o / l_run).to(q.dtype)
 
 
+def window_tile_model(q, k, v, bias, heads: int, scale: float, bias_bf16: bool):
+    """Pure-PyTorch model of the arithmetic of the wgmma window-attention
+    kernel (``oryon_tpu_torch/csrc/swin_wgmma.cuh``) on q, k, v [Bw, N, C]
+    torch tensors and bias [nw, heads, N, N].
+
+    A window's rows pad to the 64 of a wgmma tile with zeros.  The bias goes
+    through the pre-pass's fragment layout (``bias_fragments_plain``: rounded
+    to bf16 for K3, f32 for K4, -inf in the pad columns, 0 in the pad rows)
+    and is read back from it the way the accumulator registers index it.
+    Logits are f32 sums of the input-dtype products times ``scale`` plus the
+    bias; the weights are ``exp2((logit - max) * log2(e))`` with log2(e)
+    folded into the subtraction, summed unrounded in f32, multiplied by the
+    reciprocal of the sum and only then rounded to the input dtype; P V sums
+    in f32; the rows at or past N are dropped."""
+    import math
+
+    import torch
+
+    from oryon_tpu_torch.ops.cuda.swin_attn import TILE, _fragment_index, bias_fragments_plain
+
+    Bw, N, C = q.shape
+    nw, hd = bias.shape[0], C // heads
+    frag = bias_fragments_plain(bias, torch.bfloat16 if bias_bf16 else torch.float32)
+    if bias_bf16:   # [nw, heads, 4, 128, 8] -> [nw, heads, 8, 128, 4]
+        frag = frag.float().reshape(nw, heads, 4, 128, 2, 4).permute(
+            0, 1, 2, 4, 3, 5).reshape(nw, heads, 8, 128, 4)
+    row, col = _fragment_index()
+    tile = torch.full((nw, heads, TILE, TILE), float("nan"))
+    tile[:, :, row, col] = frag          # every element of the tile exactly once
+    assert not torch.isnan(tile).any()
+
+    def pad(t):   # [Bw, N, C] -> [B, nw, heads, 64, hd] f32, rows >= N zero
+        t = t.float().reshape(-1, nw, N, heads, hd).permute(0, 1, 3, 2, 4)
+        return torch.nn.functional.pad(t, (0, 0, 0, TILE - N))
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    logit = torch.einsum("bwhnd,bwhmd->bwhnm", qp, kp) * scale + tile[None]
+    neg_max = logit.amax(dim=-1, keepdim=True) * -log2e
+    e = torch.exp2(logit * log2e + neg_max)
+    prob = (e * (1.0 / e.sum(dim=-1, keepdim=True))).to(q.dtype).float()
+    o = torch.einsum("bwhnm,bwhmd->bwhnd", prob, vp)[:, :, :, :N]
+    return o.permute(0, 1, 3, 2, 4).reshape(Bw, N, C).to(q.dtype)
+
+
 class StubLib:
     """Stands in for the kernel library: records which C entry point a
     wrapper called and reports success."""

@@ -293,7 +293,8 @@ def test_no_kernel_for_other_head_dims():
 
 def test_every_entry_point_is_defined_once_in_the_sources():
     """Each name the wrappers may call is an ``extern "C"`` function of one
-    source under csrc/, and the wgmma entries reach attn_wgmma.cuh."""
+    source under csrc/, and the wgmma entries reach attn_wgmma.cuh,
+    match_wgmma.cuh or swin_wgmma.cuh."""
     from oryon_tpu_torch.ops.cuda import _lib
 
     text = {p.name: p.read_text() for p in Path(_lib.CSRC).glob("*.cu")}
@@ -306,7 +307,9 @@ def test_every_entry_point_is_defined_once_in_the_sources():
             ("oryon_fused_mha_lanes_i8qk_wgmma_bf16", "mha_lanes.cu",
              "oryon_attn_wg::launch_packed_i8("),
             ("oryon_flash_mha_wgmma_bf16", "flash.cu", "oryon_attn_wg::launch_split("),
-            ("oryon_masked_argmin_wgmma_bf16", "match_kernel.cu", "oryon_match_wg::launch(")):
+            ("oryon_masked_argmin_wgmma_bf16", "match_kernel.cu", "oryon_match_wg::launch("),
+            ("oryon_packed_window_attention_wgmma_bf16", "swin_attn.cu", "wg::launch_packed("),
+            ("oryon_band_window_attention_wgmma_bf16", "swin_attn.cu", "wg::launch_band(")):
         body = text[src].split(name + "(")[1].split("\n}\n")[0]
         assert launcher in body
     # the int8 entry runs the quantising pre-pass itself
@@ -317,4 +320,7 @@ def test_every_entry_point_is_defined_once_in_the_sources():
     assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in header
     match = (Path(_lib.CSRC) / "match_wgmma.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in match
-    assert "cp.async.bulk.tensor.3d" in (Path(_lib.CSRC) / "hopper.cuh").read_text()
+    swin = (Path(_lib.CSRC) / "swin_wgmma.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in swin
+    hopper = (Path(_lib.CSRC) / "hopper.cuh").read_text()
+    assert "cp.async.bulk.tensor.3d" in hopper and "cp.async.bulk.tensor.4d" in hopper

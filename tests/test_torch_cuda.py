@@ -253,17 +253,24 @@ def _window_case(rs, device, B, side, C, heads, w, shifted):
     return qkv_map, bias.contiguous().to(device)
 
 
+# images, map side, C, heads, window, shifted.  Head dim 32 runs the wgmma
+# kernel (one warpgroup a (window, head), persistent blocks), 16 / 64 the
+# WMMA kernel.
 WINDOW_CASES = [(2, 14, 64, 2, 7, True),      # hd = 32, nw = 4, shifted
                 (1, 7, 128, 2, 7, False),     # hd = 64, a single window
                 (3, 21, 32, 2, 7, True),      # hd = 16, nw = 9
                 (1, 8, 64, 2, 4, True),       # 16-token windows
-                (2, 16, 256, 8, 8, False)]    # 64-token windows: no pad rows
+                (2, 16, 256, 8, 8, False),    # 64-token windows: no pad rows
+                (1, 7, 32, 1, 7, False),      # one window, one head: a single item
+                (2, 14, 128, 4, 7, True),     # fewer items than persistent blocks
+                (5, 63, 96, 3, 7, True)]      # 1215 items: several rounds, 3 heads
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,side,C,heads,w,shifted", WINDOW_CASES)
 def test_packed_window_kernel_matches_plain(cuda, B, side, C, heads, w, shifted):
-    """K3 vs its plain version (bias rounded to bf16 on both sides); 2e-2."""
+    """K3 vs its plain version (bias rounded to bf16 on both sides); 2e-2.
+    Two launches on the same inputs give bitwise the same output."""
     from oryon_tpu_torch.models.swin import window_partition
     from oryon_tpu_torch.ops.cuda import swin_attn
 
@@ -271,23 +278,65 @@ def test_packed_window_kernel_matches_plain(cuda, B, side, C, heads, w, shifted)
     q, k, v = (t.contiguous() for t in window_partition(qkv_map, w).chunk(3, dim=-1))
     scale = (C // heads) ** -0.5
     got = swin_attn.packed_window_attention(q, k, v, bias, heads, scale)
+    again = swin_attn.packed_window_attention(q, k, v, bias, heads, scale)
     ref = swin_attn.packed_window_attention_plain(q, k, v, bias, heads, scale)
     torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,side,C,heads,w,shifted", WINDOW_CASES)
 def test_band_window_kernel_matches_plain(cuda, B, side, C, heads, w, shifted):
-    """K4 vs its plain version on the whole map (f32 bias); 2e-2."""
+    """K4 vs its plain version on the whole map (f32 bias); 2e-2.  Two
+    launches on the same inputs give bitwise the same output."""
     from oryon_tpu_torch.ops.cuda import swin_attn
 
     qkv_map, bias = _window_case(np.random.RandomState(5), cuda, B, side, C, heads, w, shifted)
     scale = (C // heads) ** -0.5
     got = swin_attn.band_window_attention(qkv_map, bias, heads, w, scale)
+    again = swin_attn.band_window_attention(qkv_map, bias, heads, w, scale)
     ref = swin_attn.band_window_attention_plain(qkv_map, bias, heads, w, scale)
     torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [7, 4, 8])
+@pytest.mark.parametrize("band", [False, True])
+def test_window_bias_prepass_matches_plain(cuda, w, band):
+    """The bias pre-pass of the wgmma window kernels alone gives the plain
+    version's fragments exactly (bf16 for K3, f32 for K4), and the attention
+    kernel run apart on them gives the one call's output bitwise."""
+    from oryon_tpu_torch.models.swin import window_partition
+    from oryon_tpu_torch.ops.cuda import swin_attn
+
+    heads, C = 2, 64
+    qkv_map, bias = _window_case(np.random.RandomState(7), cuda, 2, 2 * w, C, heads, w, True)
+    scale = (C // heads) ** -0.5
+    dtype = torch.float32 if band else torch.bfloat16
+    frag = swin_attn._frag_scratch(bias, dtype)
+    if band:
+        whole = swin_attn.band_window_attention(qkv_map, bias, heads, w, scale)
+
+        def run(phases, out):
+            swin_attn.run_band_phases(qkv_map, bias, heads, w, scale, phases, frag, out)
+    else:
+        q, k, v = (t.contiguous() for t in window_partition(qkv_map, w).chunk(3, dim=-1))
+        whole = swin_attn.packed_window_attention(q, k, v, bias, heads, scale)
+
+        def run(phases, out):
+            swin_attn.run_packed_phases(q, k, v, bias, heads, scale, phases, frag, out)
+    out = torch.zeros_like(whole)
+    run(swin_attn.BIAS, out)
+    torch.cuda.synchronize()
+    assert torch.equal(frag, swin_attn.bias_fragments_plain(bias, dtype))
+    run(swin_attn.ATTEND, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, whole)
 
 
 @pytest.mark.cuda

@@ -36,13 +36,27 @@ Phases, each printing one line with its result and its time:
                pre-pass against torch.nonzero; pre-pass and main kernel timed
                apart
   8. register  Kabsch, RANSAC, PointDSC and ICP recover a known rigid
-               transform in full f32 (catches TF32 in the pose math)
+               transform in full f32 (catches TF32 in the pose math); the
+               poses are scored on the card with the port's rotation /
+               translation errors, ADD and ADD-S
   9. serve     full_oryon(quant="int8") + PointDSC + ICP behind
                OryonPredictor at B=8 answers 12 requests; launch counters
                show the main path went through K1 and K2
  10. serve_optin  the same predictor switched to (fused_i8qk, Swin band) and
                to (flash, Swin pallas): one counted batch of 8 each, through
                K1-i8 + K4 and K5 + K3
+ 11. ckpt      the served model is saved with the port's save_checkpoint into
+               a temporary experiment; OryonPredictor.from_config (another
+               init seed, eval.ckpt=last, PointDSC from a fake published
+               snapshot) serves 8 requests as a predictor built directly on
+               the saved weights does: masks and correspondence counts
+               equal, poses within the registration bounds, K1 24 and K2 1
+               launches; a missing epoch raises, an empty experiment warns
+               and answers; PointDSC from the snapshot and from native.npz
+               registers like the module they were made from
+ 12. cli       run_infer_torch.main answers a two-line JSONL of png views
+               from that checkpoint, in-process on the card
+ 13. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -54,9 +68,14 @@ seeds.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,6 +92,7 @@ KERNEL_TOL = 2e-2                 # bf16 outputs: about one ulp at |x| in [2, 4)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 ROT_TOL, TRANS_TOL = 1e-3, 1e-4   # registration: rad, m
+ADD_TOL = 1e-4                    # ADD and ADD-S of a recovered pose, m
 TIMED_LAUNCHES = 20               # per kernel timing run (K2's CUDA-core kernel: 3)
 TIMED_BATCHES = 3                 # warm B=8 batches timed for pairs/s
 DEVICE = "cuda"                   # the CPU rehearsal sets "cpu"
@@ -804,6 +824,8 @@ def _pose_err(T, T_ref):
 
 @phase("register")
 def phase_register(torch):
+    from oryon_tpu_torch.eval.metrics import (compute_add, compute_adds,
+                                              rotation_translation_errors)
     from oryon_tpu_torch.geometry.kabsch import masked_icp, ransac_kabsch, weighted_kabsch
     from oryon_tpu_torch.infer import full_precision_matmuls
     from oryon_tpu_torch.models.layers import random_init_
@@ -828,14 +850,31 @@ def phase_register(torch):
         D[:3, :3], D[:3, 3] = R, c - R @ c + np.array([0.0005, 0.0, 0.0])
         init = torch.tensor(Ts @ D, dtype=torch.float32, device=DEVICE)
         res["icp"] = masked_icp(A, valid, B, valid, init, iters=48, trim=0.6)
+    # scored twice: by numpy on the host, and on the card by the port's
+    # metrics in f64 (in f32 the arccos resolves 3e-4 rad and the matmul
+    # expansion of ADD-S 3e-4 m at 0.8 m from the camera)
+    gt = torch.tensor(Ts, dtype=torch.float64, device=DEVICE)
     errs = {}
     for k, T in res.items():
         r, t = _pose_err(T.cpu().numpy(), Ts)
-        errs[k] = (r, t)
+        deg, cm = rotation_translation_errors(T.double(), gt)
+        add = compute_add(A.double(), T.double(), gt, valid.double()).max().item()
+        adds = compute_adds(A.double(), T.double(), gt, valid.double()).max().item()
+        r_m, t_m = np.deg2rad(deg.max().item()), cm.max().item() / 100.0
+        errs[k] = (r, t, add, adds)
         check(r < ROT_TOL and t < TRANS_TOL,
               f"{k}: rotation error {r:.2e} rad, translation {t:.2e} m "
               f"(limits {ROT_TOL}, {TRANS_TOL})")
-    return {"line": ", ".join(f"{k} {r:.1e} rad / {t:.1e} m" for k, (r, t) in errs.items())}
+        check(r_m < ROT_TOL and t_m < TRANS_TOL,
+              f"{k}: rotation_translation_errors gives {r_m:.2e} rad, {t_m:.2e} m "
+              f"(limits {ROT_TOL}, {TRANS_TOL})")
+        check(abs(r_m - r) < 1e-5 and abs(t_m - t) < 1e-6,   # the metric's clamp floors at 1.4e-6 rad
+              f"{k}: the port's errors ({r_m:.3e} rad, {t_m:.3e} m) differ from numpy's "
+              f"({r:.3e}, {t:.3e})")
+        check(0.0 <= add < ADD_TOL and 0.0 <= adds < ADD_TOL,
+              f"{k}: ADD {add:.2e} m, ADD-S {adds:.2e} m (limit {ADD_TOL})")
+    return {"line": ", ".join(f"{k} {r:.1e} rad / {t:.1e} m, ADD {a:.1e} ADD-S {s:.1e} m"
+                              for k, (r, t, a, s) in errs.items())}
 
 
 def _requests(rs, n, prompts):
@@ -881,15 +920,11 @@ def _profile(torch, fn, out_dir: str) -> str:
 def _counted(torch, fn):
     """Run fn() with every kernel's launch count set to 0 just before and
     read just after: (fn's result, {kernel: launches})."""
-    from oryon_tpu_torch.ops.cuda import flash, match_kernel, mha_lanes, swin_attn
-    counters = {"k1": (mha_lanes, "launches"), "k1i8": (mha_lanes, "launches_i8"),
-                "k2": (match_kernel, "launches"), "k3": (swin_attn, "launches_packed"),
-                "k4": (swin_attn, "launches_band"), "k5": (flash, "launches")}
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    from oryon_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {key: getattr(mod, attr) for key, (mod, attr) in counters.items()}
+    return out, launch_counts()
 
 
 def _check_results(results, reqs):
@@ -1052,6 +1087,267 @@ def phase_serve_optin(torch, pred, reqs, timing_batches):
     return {"line": " | ".join(lines), "counts": counts}
 
 
+def _fake_pointdsc_snapshot(rs):
+    """A state dict with the key names and shapes of the published PointDSC
+    snapshot (6 layers, 128 channels, Conv1d of kernel 1), values from
+    ``rs`` in the manner of ``random_init_``."""
+    C, sd = 128, {"sigma": np.ones(1, np.float32)}
+
+    def conv(name, i, o):
+        sd[f"{name}.weight"] = (rs.randn(o, i, 1) * i ** -0.5).astype(np.float32)
+        sd[f"{name}.bias"] = np.zeros(o, np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.ones(c, np.float32), np.zeros(c, np.float32)
+        sd[f"{name}.running_mean"] = np.zeros(c, np.float32)
+        sd[f"{name}.running_var"] = np.ones(c, np.float32)
+
+    conv("encoder.layer0", 6, C)
+    for i in range(6):
+        conv(f"encoder.blocks.PointCN_layer_{i}.0", C, C)
+        bn(f"encoder.blocks.PointCN_layer_{i}.1", C)
+        nl = f"encoder.blocks.NonLocal_layer_{i}"
+        for proj in ("projection_q", "projection_k", "projection_v"):
+            conv(f"{nl}.{proj}", C, C)
+        conv(f"{nl}.fc_message.0", C, C // 2)
+        bn(f"{nl}.fc_message.1", C // 2)
+        conv(f"{nl}.fc_message.3", C // 2, C // 2)
+        bn(f"{nl}.fc_message.4", C // 2)
+        conv(f"{nl}.fc_message.6", C // 2, C)
+    conv("classification.0", C, 32)
+    conv("classification.2", 32, 32)
+    conv("classification.4", 32, 1)
+    return sd
+
+
+def _printed(fn):
+    """(fn's result, what it printed); the text is printed again."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    return out, text
+
+
+def _pointdsc_sources(torch, tmp):
+    """One set of PointDSC weights three ways: the module built from the
+    flax-layout tree, a fake published snapshot, a ``native.npz``.  The two
+    files load through ``build_pointdsc_solver`` and register a known rigid
+    pair as the module does.  Returns (module, directory of the snapshot,
+    the module's pose errors on that pair)."""
+    from oryon_tpu_torch.models.convert import (convert_pointdsc, from_jax_params,
+                                                save_flax_npz)
+    from oryon_tpu_torch.models.pointdsc import PointDSC
+    from oryon_tpu_torch.pipeline import (build_pointdsc_solver, pointdsc_native_path,
+                                          pointdsc_snapshot_path)
+    sd = _fake_pointdsc_snapshot(np.random.RandomState(11))
+    tree = convert_pointdsc(sd)
+    direct = PointDSC()
+    direct.load_state_dict(from_jax_params(tree), strict=True)
+    direct = direct.to(DEVICE).eval()
+    snap_dir, native_dir = os.path.join(tmp, "pd_snapshot"), os.path.join(tmp, "pd_native")
+    os.makedirs(os.path.dirname(pointdsc_snapshot_path(snap_dir)))
+    os.makedirs(native_dir)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pointdsc_snapshot_path(snap_dir))
+    save_flax_npz(pointdsc_native_path(native_dir), tree)
+    A, B, valid, Ts = _rigid_case(torch, np.random.RandomState(12))
+    with torch.inference_mode():
+        want = direct(A, B, valid)[0]
+    r, t = _pose_err(want.cpu().numpy(), Ts)
+    check(r < ROT_TOL and t < TRANS_TOL, f"PointDSC on the fake snapshot's weights: {r:.2e} rad, "
+                                         f"{t:.2e} m (limits {ROT_TOL}, {TRANS_TOL})")
+    for directory, words in ((snap_dir, "reference snapshot"), (native_dir, "native.npz")):
+        pd, text = _printed(lambda: build_pointdsc_solver(directory))
+        check(words in text, f"build_pointdsc_solver({directory}) printed {text!r}")
+        with torch.inference_mode():
+            got = pd.to(DEVICE)(A, B, valid)[0]
+        check(bool(torch.allclose(got, want, atol=1e-6)),
+              f"PointDSC loaded from {words} registers differently from the module: max "
+              f"|dT| = {(got - want).abs().max().item():.2e}")
+    return direct, snap_dir, (r, t)
+
+
+CKPT_EPOCH, CKPT_SEED = 3, 7
+
+
+def _smoke_config(tmp, pd_dir, size="full", ckpt="last", exp_name="smoke"):
+    """The default config tree on a temporary experiment: int8 tower,
+    PointDSC + ICP, seeds that differ from the serve phase's (0).  The tiny
+    size serves with RANSAC."""
+    from oryon_tpu_torch.config import Config
+    cfg = Config(exp_root=os.path.join(tmp, "exp"), exp_name=exp_name, use_seed=True,
+                 seed=CKPT_SEED)
+    cfg.eval.ckpt = ckpt
+    cfg.model.size = size
+    cfg.dataset.batch_size = 8
+    cfg.test.solver = "pointdsc" if size == "full" else "ransac"
+    cfg.pretrained.pointdsc = pd_dir
+    for name in ("clip", "swin", "catseg", "vocabulary"):
+        setattr(cfg.pretrained, name, os.path.join(tmp, f"no_{name}"))
+    return cfg
+
+
+@phase("ckpt")
+def phase_ckpt(torch, pred, reqs, tmp):
+    from oryon_tpu_torch import checkpoint as ckpt
+    from oryon_tpu_torch import infer
+    from oryon_tpu_torch.infer import OryonPredictor
+
+    pointdsc, pd_dir, (pd_r, pd_t) = _pointdsc_sources(torch, tmp)
+    cfg = _smoke_config(tmp, pd_dir)
+    model, batch8 = pred.model, reqs[:8]
+    layers = model.vision_cfg.layers
+
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(cfg, CKPT_EPOCH, model)
+    save_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e9
+    direct = OryonPredictor(model, pointdsc, device=DEVICE, batch_size=8, solver="pointdsc",
+                            seed=CKPT_SEED)
+    want = direct.predict(batch8, return_masks=True)
+    # the saved model leaves the card before the restored one arrives
+    del direct
+    model.to("cpu")
+    torch.cuda.empty_cache()
+
+    times = {}
+    real_restore = infer.restore_checkpoint
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_restore(*a, **kw)
+        times["load_s"] = time.perf_counter() - t0
+        return out
+    infer.restore_checkpoint = timed_restore
+    try:
+        t0 = time.perf_counter()
+        restored, text = _printed(lambda: OryonPredictor.from_config(cfg))
+        times["from_config_s"] = time.perf_counter() - t0
+    finally:
+        infer.restore_checkpoint = real_restore
+    check(f"loaded checkpoint epoch {CKPT_EPOCH}" in text,
+          f"from_config did not say it loaded epoch {CKPT_EPOCH}: {text!r}")
+    check(text.count("missing (random init)") == 3, f"pretrained report: {text!r}")
+    check(restored.device.type == torch.device(DEVICE).type and restored.pointdsc is not None,
+          "from_config did not build the predictor on the card with PointDSC")
+    got, counts = _counted(torch, lambda: restored.predict(batch8, return_masks=True))
+    check(counts["k1"] == layers and counts["k2"] == 1 and sum(counts.values()) == layers + 1,
+          f"restored model: launches {counts}, expected K1 {layers} and K2 1")
+    _check_results(got, batch8)
+    r_max = t_max = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(np.array_equal(g["mask_a"], w["mask_a"]) and np.array_equal(g["mask_q"], w["mask_q"]),
+              f"request {i}: masks of the restored model differ from the saved model's")
+        check(g["n_corrs"] == w["n_corrs"] and g["detection_valid"] == w["detection_valid"],
+              f"request {i}: n_corrs {g['n_corrs']} vs {w['n_corrs']}")
+        r, t = _pose_err(np.asarray(g["pose"])[None], np.asarray(w["pose"], np.float64)[None])
+        r_max, t_max = max(r_max, r), max(t_max, t)
+    check(r_max < ROT_TOL and t_max < TRANS_TOL,
+          f"poses of the restored model differ by {r_max:.2e} rad, {t_max:.2e} m")
+    del restored
+    torch.cuda.empty_cache()
+
+    # a missing epoch raises (before any forward: the tiny size will do); an
+    # empty experiment warns and still answers, at full width
+    try:
+        OryonPredictor.from_config(_smoke_config(tmp, pd_dir, size="tiny", ckpt="7"))
+        check(False, "eval.ckpt=7 with no such epoch did not raise")
+    except FileNotFoundError as e:
+        check("epoch 7" in str(e), f"FileNotFoundError without the epoch: {e}")
+    empty, text = _printed(lambda: OryonPredictor.from_config(
+        _smoke_config(tmp, pd_dir, exp_name="empty")))
+    check("WARNING: eval.ckpt='last' not found" in text, f"no warning on an empty tree: {text!r}")
+    _check_results(empty.predict(batch8[:2]), batch8[:2])
+    return {"line": (f"{size_gb:.2f} GB state.pt saved in {save_s:.1f} s, restored in "
+                     f"{times['load_s']:.1f} s (from_config whole {times['from_config_s']:.1f} s); "
+                     f"8 requests: masks and n_corrs equal, poses within {r_max:.1e} rad / "
+                     f"{t_max:.1e} m, launches K1 {counts['k1']} K2 {counts['k2']}; missing "
+                     f"epoch raises, empty experiment warns and answers; PointDSC from "
+                     f"snapshot and native.npz as the module ({pd_r:.1e} rad / {pd_t:.1e} m)"),
+            "pd_dir": pd_dir}
+
+
+def _write_views(tmp, rs):
+    """Two pairs of views as files: png RGB, 16-bit png depth (mm)."""
+    from PIL import Image
+    lines = []
+    for i, req in enumerate(_requests(rs, 2, ["mug", "laptop"])):
+        spec = {"camera": "600,600,320,240", "prompt": req["prompt"], "id": f"pair{i}"}
+        for side in ("anchor", "query"):
+            rgb, depth = (os.path.join(tmp, f"cli_{i}_{side}_{kind}.png")
+                          for kind in ("rgb", "depth"))
+            Image.fromarray(req[side]["rgb"]).save(rgb)
+            Image.fromarray(req[side]["depth"].astype(np.uint16)).save(depth)
+            spec[side] = {"rgb": rgb, "depth": depth}
+        lines.append(json.dumps(spec))
+    path = os.path.join(tmp, "requests.jsonl")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+@phase("cli")
+def phase_cli(torch, tmp, pd_dir, layers):
+    import importlib.util
+
+    import run_infer_torch
+    overrides = [f"exp_root={os.path.join(tmp, 'exp')}", "exp_name=smoke", "eval.ckpt=last",
+                 f"pretrained.pointdsc={pd_dir}", f"pretrained.vocabulary={tmp}/no_vocabulary"]
+    out = os.path.join(tmp, "poses.jsonl")
+    rs = np.random.RandomState(13)
+    if importlib.util.find_spec("PIL") is not None:
+        argv = ["--requests", _write_views(tmp, rs), *overrides, f"out={out}"]
+        (_, counts), text = _printed(lambda: _counted(
+            torch, lambda: run_infer_torch.main(argv)))
+        how = "two png pairs from a JSONL file"
+    else:
+        # no image library here: the CLI's request handling, from arrays
+        print("cli: skipped (no PIL on this machine)", flush=True)
+        from oryon_tpu_torch.config import load_config
+        reqs = _requests(rs, 2, ["mug", "laptop"])
+        for i, r in enumerate(reqs):
+            r["id"] = f"pair{i}"
+        (_, counts), text = _printed(lambda: _counted(
+            torch, lambda: run_infer_torch.serve(load_config(None, overrides), reqs, out)))
+        how = "two pairs from arrays (no PIL on this machine: the files were not read)"
+    check(f"loaded checkpoint epoch {CKPT_EPOCH}" in text, f"the CLI printed {text!r}")
+    check(counts["k1"] == layers and counts["k2"] == 1,
+          f"CLI: launches {counts}, expected K1 {layers} and K2 1")
+    with open(out) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    check([ln.get("id") for ln in lines] == ["pair0", "pair1"], f"ids {lines}")
+    for ln in lines:
+        check(set(ln) == {"id", "prompt", "pose", "n_corrs", "detection_valid"},
+              f"keys of an output line: {sorted(ln)}")
+    _check_results(lines, [{"prompt": "mug"}, {"prompt": "laptop"}])
+    return {"line": f"{how}: {len(lines)} poses, launches K1 {counts['k1']} K2 {counts['k2']}"}
+
+
+@phase("bench")
+def phase_bench(torch, smi_line, layers):
+    import bench_torch
+    line, text = _printed(lambda: bench_torch.main(["--rounds", "2", "--iters", "3"]))
+    check(json.loads(text.strip().splitlines()[-1]) == line, "bench_torch's last line")
+    variants = ("value", "icp_off_variant", "bf16_parity_variant", "ransac_variant")
+    check("vs_baseline" not in line and all(k in line for k in (
+        "metric", "unit", "solver", "quant", "icp_refine", "min", "max", "stage_ms",
+        "launches", "device", *variants)), f"fields of the bench line: {sorted(line)}")
+    for v in variants:
+        check(0 < line["min"][v] <= line[v] <= line["max"][v],
+              f"{v}: min {line['min'][v]}, median {line[v]}, max {line['max'][v]}")
+    check(line["launches"]["k1"] == layers and line["launches"]["k2"] == 1,
+          f"bench launches {line['launches']}")
+    check(line["device"] == smi_line, f"bench device {line['device']!r} vs {smi_line!r}")
+    check(all(v > 0 for k, v in line["stage_ms"].items() if k != "outside"),
+          f"stage times {line['stage_ms']}")
+    return {"line": (f"2 x 3 batches a variant: headline {line['value']:.2f} pairs/s "
+                     f"({line['min']['value']:.2f}-{line['max']['value']:.2f}), ICP off "
+                     f"{line['icp_off_variant']:.2f}, bf16 {line['bf16_parity_variant']:.2f}, "
+                     f"RANSAC {line['ransac_variant']:.2f}; stages "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in line["stage_ms"].items()) + " ms")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -1080,6 +1376,15 @@ def main(argv=None) -> int:
     phase_register(torch)
     counts, pred, reqs = phase_serve(torch, TIMED_BATCHES, args.profile)["state"]
     counts.update(phase_serve_optin(torch, pred, reqs, TIMED_BATCHES)["counts"])
+    layers = pred.model.vision_cfg.layers
+    tmp = tempfile.mkdtemp(prefix="oryon_smoke_")
+    try:
+        pd_dir = phase_ckpt(torch, pred, reqs, tmp)["pd_dir"]
+        del pred
+        phase_cli(torch, tmp, pd_dir, layers)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_bench(torch, dev["smi"], layers)
     table = [   # key, wrapper, source, TPU kernel it replaces
         ("k1", "fused_mha_lanes_qkv", "mha_lanes.cu", "oryon_tpu/ops/pallas/mha_lanes.py:121"),
         ("k1i8", "fused_mha_lanes_qkv(qk_int8=True)", "mha_lanes.cu",

@@ -23,6 +23,18 @@ def scale_coords(coords: torch.Tensor, source, target) -> torch.Tensor:
     return coords * ratio.tile(k)
 
 
+def crop_coords(coords: torch.Tensor, origin) -> torch.Tensor:
+    """Subtract a crop origin (y0, x0) from (..., 2) yx coords."""
+    coords = coords.float()
+    return coords - _hw(origin, coords)
+
+
+def decrop_coords(coords: torch.Tensor, origin) -> torch.Tensor:
+    """Add a crop origin (y0, x0) back to (..., 2) yx coords."""
+    coords = coords.float()
+    return coords + _hw(origin, coords)
+
+
 def valid_coords(coords: torch.Tensor, bounds) -> torch.Tensor:
     """Boolean mask of (..., 2) yx coords inside [0, H) x [0, W)."""
     b = _hw(bounds, coords).to(coords.dtype)

@@ -64,6 +64,11 @@ def weighted_kabsch(A: torch.Tensor, B: torch.Tensor,
     return _compose(R, t)
 
 
+def kabsch(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Unweighted rigid fit A -> B."""
+    return weighted_kabsch(A, B, None)
+
+
 def weighted_kabsch_quat(A: torch.Tensor, B: torch.Tensor,
                          weights: Optional[torch.Tensor] = None,
                          eps: float = 1e-6,
@@ -204,3 +209,25 @@ def masked_icp(src: torch.Tensor, src_valid: torch.Tensor, dst: torch.Tensor,
     T_best = torch.where((err_last < e_best)[:, None, None], T_cur, T_best)
     enough = (n_src >= 4) & (n_dst >= 4)
     return torch.where(enough[:, None, None], T_best, init_T)
+
+
+def icp(A: torch.Tensor, B: torch.Tensor, init_T: Optional[torch.Tensor] = None,
+        max_iterations: int = 20, tolerance: float = 1e-3) -> torch.Tensor:
+    """Iterative closest point A [N, 3] -> B [M, 3] with a fixed trip count:
+    the cloud stops moving once the mean nearest-neighbour distance changes
+    by less than ``tolerance`` between two trips.  Exact brute-force
+    neighbours.  Returns the fit of A onto the moved cloud, [4, 4]."""
+    if init_T is None:
+        init_T = torch.eye(4, device=A.device)
+    A, B = A.float(), B.float()
+    src = transform_pcd(A, init_T[:3, :3].float(), init_T[:3, 3].float())
+    prev_err = torch.tensor(float("inf"), device=A.device)
+    done = torch.tensor(False, device=A.device)
+    for _ in range(max_iterations):
+        d2, nn = torch.min(sq_dist_matrix(src, B), dim=-1)
+        T = weighted_kabsch(src, B[nn])
+        err = torch.mean(torch.sqrt(d2 + 1e-12))
+        src = torch.where(done, src, transform_pcd(src, T[:3, :3], T[:3, 3]))
+        done = done | (torch.abs(prev_err - err) < tolerance)
+        prev_err = err
+    return weighted_kabsch(A, src)

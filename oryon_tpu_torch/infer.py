@@ -6,8 +6,9 @@ object move?" requests at a fixed batch size and depth resolution.  Short
 tails are padded with the first request and dropped from the results; text
 embeddings are memoised per prompt string.  ``from_config`` builds the
 engine from the config tree (``config.load_config``), where a user chooses
-the attention kernels (``model.attn_impl=...``); restoring a checkpoint and
-the CLI of the JAX engine are not ported yet.
+the attention kernels (``model.attn_impl=...``), merges the pretrained
+towers and restores the experiment's checkpoint (``eval.ckpt``);
+``load_view`` reads a view from files; ``run_infer_torch.py`` is the CLI.
 
 Request dict: {"anchor": {"rgb": [H,W,3] u8, "depth": [Ho,Wo] mm,
 "camera": K, "mask": optional [H,W] u8}, "query": {...}, "prompt": str}.
@@ -17,21 +18,55 @@ Result dict: {"pose": 4x4 T_anchor->query (metres), "n_corrs": int,
 from __future__ import annotations
 
 import json
+from os.path import splitext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from oryon_tpu_torch.checkpoint import restore_checkpoint
 from oryon_tpu_torch.config import TestConfig
 from oryon_tpu_torch.data.pair_batch import PairBatch, PairView
 from oryon_tpu_torch.data.templates import CLIP_TEMPLATES
 from oryon_tpu_torch.models.layers import random_init_
 from oryon_tpu_torch.models.oryon import (build_model, resolve_attn_impl,
                                           resolve_quant)
+from oryon_tpu_torch.models.pretrained import load_pretrained_params
 from oryon_tpu_torch.models.tokenizer import ClipTokenizer
 from oryon_tpu_torch.ops.matching import MatchParams
 from oryon_tpu_torch.pipeline import (PipelineConfig, build_pointdsc_solver,
                                       make_run_fn, pointdsc_weights_available)
+
+
+def _load_array(path: str) -> np.ndarray:
+    """A .npy / .npz array (the first of an archive), else any PIL image."""
+    if splitext(path)[1] in (".npy", ".npz"):
+        arr = np.load(path)
+        return arr[arr.files[0]] if hasattr(arr, "files") else arr
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def load_view(spec: Dict) -> Dict:
+    """Load one view's arrays from a file spec {rgb, depth, camera[, mask]}.
+
+    rgb: png/jpg (any PIL format) -> [H, W, 3] uint8
+    depth: 16-bit png (mm) or .npy/.npz float/int array (mm)
+    camera: any form ``parse_camera`` takes
+    mask: optional png (nonzero = object) or .npy/.npz
+    """
+    from PIL import Image
+
+    out: Dict = {"rgb": np.asarray(Image.open(spec["rgb"]).convert("RGB")),
+                 "depth": np.asarray(_load_array(spec["depth"]), np.float32),
+                 "camera": parse_camera(spec["camera"])}
+    if spec.get("mask"):
+        mask = _load_array(spec["mask"])
+        if mask.ndim == 3:
+            mask = mask[..., 0]
+        out["mask"] = (mask > 0).astype(np.uint8)
+    return out
 
 
 def parse_camera(spec) -> np.ndarray:
@@ -129,20 +164,30 @@ class OryonPredictor:
         trained PointDSC weights exist.  Runs on the card unless the caller
         passes ``device="cpu"``.
 
-        Weights are random, drawn from ``generator`` (default: seeded with
-        ``cfg.seed`` if ``cfg.use_seed`` else 1): restoring ``eval.ckpt`` and
-        merging pretrained towers are not ported yet, so a non-empty
-        ``cfg.eval.ckpt`` raises instead of serving other weights silently."""
-        if cfg.eval.ckpt is not None and str(cfg.eval.ckpt) != "":
-            raise NotImplementedError(
-                f"eval.ckpt={cfg.eval.ckpt!r}: checkpoint restore is not ported "
-                "yet (ROADMAP queue 1: checkpoint restore + pretrained merge)")
+        Weights, in this order: random, drawn from ``generator`` (default:
+        seeded with ``cfg.seed`` if ``cfg.use_seed`` else 1); the pretrained
+        towers, fusion and decoder when ``cfg.model.size == "full"`` (each
+        asset optional, the report printed); the checkpoint ``cfg.eval.ckpt``
+        ("last" or an epoch number) of the experiment ``cfg.exp_root`` /
+        ``cfg.exp_name``.  An experiment without checkpoints prints a warning
+        and serves the weights it has.  All of it happens on the host; the
+        constructor then moves the one copy to ``device``."""
         size = cfg.model.size
         model = build_model(size, quant=resolve_quant(size, cfg.model.quant),
                             attn_impl=resolve_attn_impl(size, cfg.model.attn_impl))
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed if cfg.use_seed else 1)
         random_init_(model, generator)
+        if size == "full":
+            for line in load_pretrained_params(cfg, model):
+                print(line)
+        if cfg.eval.ckpt is not None and str(cfg.eval.ckpt) != "":
+            epoch, _ = restore_checkpoint(cfg, model, str(cfg.eval.ckpt))
+            if epoch >= 0:
+                print(f"loaded checkpoint epoch {epoch}")
+            else:
+                print(f"WARNING: eval.ckpt={cfg.eval.ckpt!r} not found; "
+                      "serving current (pretrained/random) params")
         solver, pointdsc = cfg.test.solver, None
         if solver == "pointdsc":
             if pointdsc_weights_available(cfg.pretrained.pointdsc):

@@ -72,7 +72,8 @@ def shift_attention_mask(H: int, W: int, w: int, shift: int) -> np.ndarray:
 
 @lru_cache(maxsize=32)
 def _shift_mask(H: int, W: int, w: int, shift: int, device: torch.device):
-    return torch.from_numpy(shift_attention_mask(H, W, w, shift)).to(device)
+    with torch.inference_mode(False):     # kept for later calls, see ops/resize._matrix
+        return torch.from_numpy(shift_attention_mask(H, W, w, shift)).to(device)
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:

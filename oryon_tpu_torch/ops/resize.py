@@ -67,8 +67,11 @@ def resize_matrix(
 @lru_cache(maxsize=64)
 def _matrix(in_size: int, out_size: int, method: str, align_corners: bool,
             device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(
-        resize_matrix(in_size, out_size, method, align_corners)).to(device)
+    # kept for later calls: made outside inference mode, so that a matrix
+    # first asked for while serving can still enter a graph that autograd tracks
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            resize_matrix(in_size, out_size, method, align_corners)).to(device)
 
 
 def resize2d(

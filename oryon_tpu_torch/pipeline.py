@@ -19,7 +19,6 @@ import dataclasses
 import os
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from oryon_tpu_torch.data.pair_batch import PairBatch, PairView
@@ -28,7 +27,8 @@ from oryon_tpu_torch.geometry.coords import scale_coords, valid_coords
 from oryon_tpu_torch.geometry.kabsch import masked_icp, ransac_kabsch
 from oryon_tpu_torch.geometry.pcd import lift_pcd_at
 from oryon_tpu_torch.models.oryon import OryonModel
-from oryon_tpu_torch.models.convert import from_jax_params
+from oryon_tpu_torch.models.convert import (convert_pointdsc, from_jax_params,
+                                            load_flax_npz, load_torch_state)
 from oryon_tpu_torch.models.pointdsc import PointDSC, PointDSCConfig
 from oryon_tpu_torch.ops.matching import MatchParams, nn_correspondences, src_capacity
 from oryon_tpu_torch.ops.resize import resize_mask_nearest
@@ -197,31 +197,25 @@ def pointdsc_weights_available(pretrained_dir: str) -> bool:
 
 
 def build_pointdsc_solver(pretrained_dir: str) -> PointDSC:
-    """The PointDSC module with the trained weights of ``native.npz``,
-    bridged by ``from_jax_params``; its depth is read off the tree.  Says
-    which file it loaded.  The torch-snapshot converter is not ported: a
-    directory that holds only the snapshot raises, and so does one that
-    holds neither (no random weights are served)."""
+    """The PointDSC module with its trained weights.  Prefers the published
+    torch snapshot (through ``convert_pointdsc``), then ``native.npz``, whose
+    depth is read off the tree; both reach the module through
+    ``from_jax_params``.  Says which file it loaded, so that a stale
+    ``native.npz`` cannot stand in for the snapshot unnoticed.  A directory
+    that holds neither raises: no random weights are served."""
     native = pointdsc_native_path(pretrained_dir)
-    if not os.path.exists(native):
-        if os.path.exists(pointdsc_snapshot_path(pretrained_dir)):
-            raise NotImplementedError(
-                "only the PointDSC torch snapshot is present; its converter "
-                "is not ported yet (ROADMAP queue 1, checkpoint restore)")
+    snapshot = pointdsc_snapshot_path(pretrained_dir)
+    if os.path.exists(snapshot):
+        variables = convert_pointdsc(load_torch_state(snapshot))
+        print(f"PointDSC weights: reference snapshot {snapshot}")
+    elif os.path.exists(native):
+        variables = load_flax_npz(native)
+        print(f"PointDSC weights: flax-native {native}")
+    else:
         raise FileNotFoundError(f"no PointDSC weights under {pretrained_dir!r}")
-    with np.load(native) as z:
-        flat = {tuple(k.split("/")): z[k] for k in z.files}
-    variables: dict = {}
-    for path, leaf in flat.items():
-        node = variables
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = leaf
-    n_layers = len({k[2] for k in flat if k[:2] == ("params", "encoder")
-                    and k[2].startswith("pointcn_")})
+    n_layers = sum(k.startswith("pointcn_") for k in variables["params"]["encoder"])
     pd = PointDSC(PointDSCConfig(num_layers=n_layers))
     pd.load_state_dict(from_jax_params(variables), strict=True)
-    print(f"PointDSC weights: {native}")
     return pd.eval()
 
 

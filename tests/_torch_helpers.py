@@ -280,3 +280,92 @@ def tiled_argmin_model(src, tgt, bad, tile: int = 128, splits: int = 1):
     if count == 0:
         return dist, torch.zeros(S, dtype=torch.int32)
     return dist, torch.from_numpy(idx_map)[pos]
+
+
+def export_params_npz(epoch_dir: str) -> str:
+    """Export the params tree of a checkpoint entry written by the JAX
+    package (orbax) to ``params.npz`` inside the same directory: a flat npz
+    of '/'-joined flax paths, the format the port's ``checkpoint.py`` reads.
+    Needs orbax and flax, so it lives with the tests, not in the port."""
+    import os
+
+    import orbax.checkpoint as ocp
+    from flax.traverse_util import flatten_dict
+
+    raw = ocp.PyTreeCheckpointer().restore(os.path.abspath(epoch_dir))
+    flat = flatten_dict(raw["params"])
+    out = os.path.join(epoch_dir, "params.npz")
+    np.savez(out, **{"/".join(k): np.asarray(v) for k, v in flat.items()})
+    return out
+
+
+# Port module name -> name in the original torch checkpoint, as regular
+# expression substitutions applied in order; the inverse of what the
+# converters of ``models/convert.py`` read.  Both sides keep torch's tensor
+# layouts, except that a Conv1d of kernel 1 has a trailing axis of 1.
+_ORIGINAL_NAMES = {
+    "clip_visual": [(r"^resblocks\.", "transformer.resblocks."),
+                    (r"in_proj\.(weight|bias)$", r"in_proj_\1"),
+                    (r"mlp_c_(fc|proj)", r"mlp.c_\1"), (r"^", "visual.")],
+    "clip_text": [(r"^resblocks\.", "transformer.resblocks."),
+                  (r"in_proj\.(weight|bias)$", r"in_proj_\1"),
+                  (r"mlp_c_(fc|proj)", r"mlp.c_\1"),
+                  (r"^token_embedding$", "token_embedding.weight")],
+    "swin": [(r"^patch_embed", "features.0.0"), (r"^patch_norm", "features.0.2"),
+             (r"^stage1_block(\d)", r"features.1.\1"), (r"^stage2_block(\d)", r"features.3.\1"),
+             (r"^merge1", "features.2"), (r"^merge2", "features.4"),
+             (r"mlp_fc1", "mlp.0"), (r"mlp_fc2", "mlp.3")],
+    "fusion": [(r"^guidance_projection", "guidance_projection.0"),
+               (r"^text_guidance_projection", "text_guidance_projection.0"),
+               (r"^layer_(\d)\.guidance_norm", r"layers.\1.swin_block.guidance_norm"),
+               (r"^layer_(\d)\.swin_block(\d)\.", r"layers.\1.swin_block.block_\2."),
+               (r"^layer_(\d)\.class_transformer\.(norm\d)", r"layers.\1.attention.\2"),
+               (r"^layer_(\d)\.class_transformer\.([qkv])\.", r"layers.\1.attention.attention.\2."),
+               (r"^layer_(\d)\.class_transformer\.mlp_fc1", r"layers.\1.attention.MLP.0"),
+               (r"^layer_(\d)\.class_transformer\.mlp_fc2", r"layers.\1.attention.MLP.2"),
+               (r"mlp_fc(\d)", r"mlp.fc\1"), (r"^", "fusion.")],
+    "decoder": [(r"^guidance_proj_(\d)", r"decoder_guidance_projection.\1.0"),
+                (r"conv\.conv1", "conv.double_conv.0"), (r"conv\.gn1", "conv.double_conv.1"),
+                (r"conv\.conv2", "conv.double_conv.3"), (r"conv\.gn2", "conv.double_conv.4"),
+                (r"^", "decoder.")],
+    "pointdsc": [(r"^encoder\.pointcn_(\d)\.conv", r"encoder.blocks.PointCN_layer_\1.0"),
+                 (r"^encoder\.pointcn_(\d)\.bn", r"encoder.blocks.PointCN_layer_\1.1"),
+                 (r"^encoder\.nonlocal_(\d)\.fc1\.conv", r"encoder.blocks.NonLocal_layer_\1.fc_message.0"),
+                 (r"^encoder\.nonlocal_(\d)\.fc1\.bn", r"encoder.blocks.NonLocal_layer_\1.fc_message.1"),
+                 (r"^encoder\.nonlocal_(\d)\.fc2\.conv", r"encoder.blocks.NonLocal_layer_\1.fc_message.3"),
+                 (r"^encoder\.nonlocal_(\d)\.fc2\.bn", r"encoder.blocks.NonLocal_layer_\1.fc_message.4"),
+                 (r"^encoder\.nonlocal_(\d)\.fc3", r"encoder.blocks.NonLocal_layer_\1.fc_message.6"),
+                 (r"^encoder\.nonlocal_(\d)\.", r"encoder.blocks.NonLocal_layer_\1."),
+                 (r"^cls1", "classification.0"), (r"^cls2", "classification.2"),
+                 (r"^cls3", "classification.4")],
+}
+# modules that are a Conv1d of kernel 1 in the original checkpoints
+_CONV1D = {"fusion": ("clip_conv",), "pointdsc": ("",)}
+
+
+def original_torch_state(module, kind: str, seed: int):
+    """(state dict of ``module`` filled from a numpy seed, the same values
+    under the key names and in the layouts of the original torch checkpoint
+    of ``kind``).  The second is what a converter of ``models/convert.py``
+    takes; converted and bridged it must give back the first.  Running
+    variances are positive, ``num_batches_tracked`` keeps its value."""
+    import re
+
+    rs = np.random.RandomState(seed)
+    port, original = {}, {}
+    for key, ref in module.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            port[key] = ref.numpy().copy()
+            continue
+        a = rs.randn(*ref.shape).astype(np.float32) * 0.1
+        if key.endswith("running_var"):
+            a = np.abs(a) + 0.5
+        port[key] = a
+        name = key
+        for pattern, repl in _ORIGINAL_NAMES[kind]:
+            name = re.sub(pattern, repl, name)
+        if a.ndim == 2 and key.endswith("weight") and any(
+                key.startswith(p) for p in _CONV1D.get(kind, ())):
+            a = a[:, :, None]
+        original[name] = a
+    return port, original

@@ -175,7 +175,9 @@ def _imports_and_joins(path):
 
 
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "oryon_tpu_torch", "**", "*.py"),
-                              recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
+                              recursive=True)) + [
+    os.path.join(ROOT, name) for name in ("chip_smoke.py", "run_infer_torch.py",
+                                          "bench_torch.py")]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))

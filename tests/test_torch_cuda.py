@@ -358,3 +358,47 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         mha_lanes.fused_mha_lanes_qkv(torch.zeros(1, 64, 192, device=cuda),
                                       torch.zeros(64, device=cuda), 2, 1.0, qk_int8=True)
+
+
+@pytest.mark.cuda
+def test_from_config_serves_a_checkpoint_on_the_card(cuda, tmp_path, capsys):
+    """A tiny model saved with the port's ``save_checkpoint`` and restored by
+    ``from_config`` on the card (its own init seed differs): the weights on
+    the device are the saved ones, and a pair is answered with a finite pose.
+    The tiny model computes in f32 and K1 takes bf16 only, so its tower
+    answers through einsum attention here."""
+    from oryon_tpu_torch import checkpoint as ckpt
+    from oryon_tpu_torch import config as tcfg
+    from oryon_tpu_torch.infer import OryonPredictor
+    from oryon_tpu_torch.models.layers import random_init_
+    from oryon_tpu_torch.models.oryon import tiny_oryon
+
+    cfg = tcfg.load_config(None, [
+        "model.size=tiny", "dataset.batch_size=2", "dataset.img_size=[64, 64]",
+        "test.n_corrs=64", "test.solver=ransac", "test.icp_points=128", "test.icp_iters=4",
+        f"exp_root={tmp_path}", "exp_name=card", "eval.ckpt=last", "use_seed=true", "seed=3",
+        f"pretrained.pointdsc={tmp_path}/none"])
+    ckpt.init_experiment(cfg)
+    saved = random_init_(tiny_oryon(), torch.Generator().manual_seed(8))
+    ckpt.save_checkpoint(cfg, 5, saved)
+    pred = OryonPredictor.from_config(cfg, depth_hw=(48, 64))
+    assert "loaded checkpoint epoch 5" in capsys.readouterr().out
+    assert pred.device.type == "cuda"
+    for k, v in pred.model.state_dict().items():
+        assert v.is_cuda and torch.equal(v.cpu(), saved.state_dict()[k]), k
+
+    def tokenize(prompt):     # tiny has 600 token ids
+        ids = np.zeros((8, 16), np.int32)
+        ids[:, 0], ids[:, 1], ids[:, 2] = 598, len(prompt) % 500 + 1, 599
+        return ids
+    pred._tokenize = tokenize
+    for blk in pred.model.vlm_visual.resblocks:
+        blk.attn.attn_impl = "einsum"
+    rs = np.random.RandomState(9)
+
+    def view():
+        return {"rgb": (rs.rand(64, 64, 3) * 255).astype(np.uint8),
+                "depth": (rs.rand(48, 64) * 300 + 600).astype(np.float32),
+                "camera": [60.0, 60.0, 32.0, 24.0]}
+    res = pred.predict_pair(view(), view(), "mug")
+    assert np.isfinite(np.asarray(res["pose"])).all()

@@ -132,6 +132,21 @@ def test_resize2d_matches_jax(rng, method, ac, out):
         np.asarray(resize_mask_nearest(jnp.array(m), (32, 32))))
 
 
+def test_resize2d_first_served_then_differentiated():
+    """The interpolation matrices are kept between calls: one first made
+    under ``torch.inference_mode`` (serving) must still enter a computation
+    that autograd tracks, whatever ran first in the process."""
+    from oryon_tpu_torch.ops import resize as port
+
+    x = torch.rand(1, 7, 9, 2, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        served = port.resize2d(x, (13, 11), "cubic")       # sizes no other test uses
+    x.requires_grad_(True)
+    y = port.resize2d(x, (13, 11), "cubic")
+    y.sum().backward()
+    assert torch.equal(y.detach(), served) and x.grad.shape == x.shape
+
+
 def test_top_k_matches_lax_top_k():
     """Ties (+0.0 / -0.0 / -inf) come out in jax.lax.top_k's order."""
     from oryon_tpu_torch.ops.sampling import top_k

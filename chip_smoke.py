@@ -15,7 +15,8 @@ Phases, each printing one line with its result and its time:
                version at the ViT-L shape and at the edges of its tiling
                (L = 640, 65, 1, one image, a fully masked leading key tile),
                one head-dim-32 case on the WMMA kernel, two launches bitwise
-               equal, and the host time of one wrapper call
+               equal, the host time of one wrapper call, and the f32 mode
+               (CUDA cores) at the small and tiny towers' shapes to 1e-5
   4. k1i8      the same with int8 logits (int8 wgmma behind a quantising
                pre-pass) at the padded ViT-L shape and the same edges; the
                pre-pass alone gives the plain version's absmax and int8 codes
@@ -44,7 +45,8 @@ Phases, each printing one line with its result and its time:
                show the main path went through K1 and K2
  10. serve_optin  the same predictor switched to (fused_i8qk, Swin band) and
                to (flash, Swin pallas): one counted batch of 8 each, through
-               K1-i8 + K4 and K5 + K3
+               K1-i8 + K4 and K5 + K3; then the small model (f32 towers)
+               answers 2 requests through K1's f32 mode and K2
  11. ckpt      the served model is saved with the port's save_checkpoint into
                a temporary experiment; OryonPredictor.from_config (another
                init seed, eval.ckpt=last, PointDSC from a fake published
@@ -56,7 +58,16 @@ Phases, each printing one line with its result and its time:
                registers like the module they were made from
  12. cli       run_infer_torch.main answers a two-line JSONL of png views
                from that checkpoint, in-process on the card
- 13. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
+ 13. eval      a REAL275-format tree (2 box objects, 16 pairs at 480 x 640,
+               depth rendered from the ground-truth poses) evaluated by
+               run_test_torch.main at full width: 16 CSV lines, the
+               metrics JSON, K1 48 and K2 2 launches; the ground-truth pose
+               scores recall 1 (ADD(S), MSSD, MSPD, VSD), a pose 5 cm off
+               scores as on the CPU; warm sweeps with and without scoring,
+               the window render and the scoring of a batch timed;
+               debug_valid (ground-truth correspondences, no K2) and
+               nn_correspondences_anchors (one K2 launch) on one batch
+ 14. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -318,6 +329,10 @@ K1_EDGES = (("L=640 unpadded", 2, 640, 64, 640, False), ("L=65", 2, 65, 64, 65, 
             ("L=1", 2, 1, 64, 1, False), ("B=1", 1, 577, 64, 560, False),
             ("masked leading tile", 2, 640, 64, 577, True))
 K1_OTHER_HD = ("hd=32", 2, 577, 32, 560, False)
+# K1's f32 mode on the small and tiny towers (ViT at 112^2 and 56^2, patch 14:
+# 1 + 8^2 and 1 + 4^2 tokens, width 64, 4 heads of 16): [B, L, 3C]
+K1_F32_CASES = (("small", (2, 65, 192)), ("tiny", (2, 17, 192)))
+K1_F32_HEADS, K1_F32_TOL = 4, 1e-5
 
 
 def _k1_case(torch, mha_lanes, g, B, L, hd, real, lead, qk_int8=False):
@@ -350,6 +365,7 @@ def phase_k1(torch, iters):
                    for name, *case in K1_EDGES)
     name, *case = K1_OTHER_HD
     other_err = compare(torch, *_k1_case(torch, mha_lanes, g, *case), f"K1 {name}")
+    f32_err, res["f32"] = _k1_f32(torch, mha_lanes, g, iters)
     mask16 = kmask.to(torch.bfloat16)[None, None, None, :]
     res.update(timed(kernel,
                      lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
@@ -364,8 +380,44 @@ def phase_k1(torch, iters):
                    f"{res['ms'] / res['library_ms']:.2f}; edges "
                    f"({', '.join(n for n, *_ in K1_EDGES)}) max abs err {edge_err:.3e}, "
                    f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise "
-                   f"equal; host {res['host_us']:.1f} us per wrapper call")
+                   f"equal; host {res['host_us']:.1f} us per wrapper call; f32 mode "
+                   + ", ".join(f"{n} {list(shape)} {e:.2e}" for n, shape, e in f32_err)
+                   + f" (tol {K1_F32_TOL}), small: {times_txt(res['f32'])}")
     return res
+
+
+def _k1_f32(torch, mha_lanes, g, iters):
+    """K1's f32 mode against reference_mha at the small and tiny towers'
+    shapes, tolerance K1_F32_TOL, one launch counted a call; timed, with its
+    bound and SDPA in f32, at the small tower's shape.  Returns (errors,
+    timings)."""
+    errs = []
+    for name, shape in K1_F32_CASES:
+        qkv = torch.randn(shape, generator=g, device=DEVICE)
+        kmask = torch.zeros(shape[1], device=DEVICE)
+        hd = shape[2] // 3 // K1_F32_HEADS
+        before = mha_lanes.launches
+        got = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, hd ** -0.5)
+        check(mha_lanes.launches == before + 1 and got.dtype == torch.float32,
+              f"K1 f32 {name}: no launch counted or dtype {got.dtype}")
+        ref = mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS, hd ** -0.5)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and err < K1_F32_TOL,
+              f"K1 f32 {name}: max |kernel - plain| = {err} >= {K1_F32_TOL}")
+        errs.append((name, shape, err))
+    qkv = torch.randn(K1_F32_CASES[0][1], generator=g, device=DEVICE)
+    B, L, C3 = qkv.shape
+    kmask = torch.zeros(L, device=DEVICE)
+    scale = (C3 // 3 // K1_F32_HEADS) ** -0.5
+    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
+    res = {"err": max(e for *_, e in errs)}
+    res.update(timed(lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale),
+                     lambda: mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS, scale),
+                     lambda: sdpa_packed(torch, qkv, kmask[None, None, None, :], K1_F32_HEADS),
+                     iters))
+    res.update(bound(nbytes(qkv, kmask, out), {"f32": 4 * B * L * L * (C3 // 3)}))
+    return errs, res
 
 
 @phase("k1i8")
@@ -1348,6 +1400,339 @@ def phase_bench(torch, smi_line, layers):
                      + ", ".join(f"{k} {v:.1f}" for k, v in line["stage_ms"].items()) + " ms")}
 
 
+@phase("serve_small")
+def phase_serve_small(torch):
+    """The small model (f32 towers) served on the card: its tower goes
+    through K1's f32 mode, its matching through K2."""
+    from oryon_tpu_torch.infer import OryonPredictor
+    from oryon_tpu_torch.models.layers import random_init_
+    from oryon_tpu_torch.models.oryon import small_oryon
+    model = random_init_(small_oryon(), torch.Generator().manual_seed(2))
+    pred = OryonPredictor(model, device=DEVICE, batch_size=2, solver="ransac", seed=2)
+    reqs = _requests(np.random.RandomState(8), 2, ["mug", "bowl"])
+    results, counts = _counted(torch, lambda: pred.predict(reqs))
+    _check_results(results, reqs)
+    layers = model.vision_cfg.layers
+    check(counts["k1"] == layers and counts["k2"] == 1 and sum(counts.values()) == layers + 1,
+          f"small model: launches {counts}, expected K1 {layers} (f32 mode) and K2 1")
+    return {"line": f"2 requests answered, launches K1 {counts['k1']} (f32 mode) K2 "
+                    f"{counts['k2']}", "counts": counts}
+
+
+# A REAL275-format tree for the eval phase: two box-shaped objects (the
+# second with a 180-degree symmetry), six views each at 480 x 640 with the
+# REAL275 intrinsics, eight anchor/query pairs a class, scene depth rendered
+# from the ground-truth pose over a background plane with millimetre noise.
+EVAL_HW = (480, 640)
+EVAL_K = np.array([[591.0125, 0, 322.525], [0, 590.16775, 244.11084], [0, 0, 1]])
+EVAL_CLASSES = (("box_1", 1, (100.0, 80.0, 60.0), ["box", "carton", "cardboard box"], {}),
+                ("tall_1", 2, (60.0, 60.0, 120.0), ["bottle", "can", "tall can"],
+                 {"symmetries_discrete": [[-1, 0, 0, 0, 0, -1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1]]}))
+EVAL_VIEWS = 6
+EVAL_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 4), (2, 5), (3, 4), (4, 5))
+EVAL_SPLIT, EVAL_WINDOW, EVAL_BATCH = "eval_split", 256, 8
+# ground-truth correspondences land on featmap pixels (2.5 px of the 480 x
+# 640 frame) and the depth has 2 mm noise; RANSAC then ICP on the GT masks
+# (the CPU run of the same steps: 0.025 rad, 0.012 m at worst): rad, m
+DEBUG_ROT_TOL, DEBUG_TRANS_TOL = 0.1, 0.03
+
+
+def _box_mesh(size, max_edge=20.0):
+    """A closed box of ``size`` mm centred on the origin, subdivided until
+    every edge is at most ``max_edge`` mm: (vertices [V, 3] mm, faces)."""
+    from oryon_tpu_torch.eval.renderer import subdivide_mesh
+    h = np.asarray(size) / 2.0
+    V = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)]) * h
+    F = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                  [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    return subdivide_mesh(V, F, max_edge)
+
+
+def _rotation(rs, max_angle=np.pi):
+    """A random rotation: axis uniform, angle uniform in [0, max_angle)."""
+    a = rs.randn(3)
+    a /= np.linalg.norm(a)
+    A = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    th = rs.uniform(0, max_angle)
+    return np.eye(3) + np.sin(th) * A + (1 - np.cos(th)) * (A @ A)
+
+
+def _random_pose(rs, base):
+    """A view of an object: its class's ``base`` rotation turned by up to
+    35 degrees (the views of a scene overlap, as a sequence's do), and a
+    translation that keeps it in view, 500-700 mm from the camera (mm)."""
+    t = np.array([rs.uniform(-60, 60), rs.uniform(-40, 40), rs.uniform(500, 700)])
+    return _rotation(rs, np.deg2rad(35)) @ base, t
+
+
+def write_real275_tree(root, rs, device, split=EVAL_SPLIT, views=EVAL_VIEWS,
+                       pairs=EVAL_PAIRS, hw=EVAL_HW, scale=1.0):
+    """Write the REAL275 layout ``data.datasets.NocsReader`` reads, with
+    ground-truth relative poses and correspondences in the fixed split;
+    ``scale`` multiplies the objects' sizes.  Depth and masks are rendered
+    by the port's scatter rasteriser on ``device``.  Returns the number of
+    pairs."""
+    import pickle
+
+    import torch
+    from PIL import Image
+
+    from oryon_tpu_torch.data.meshio import load_nocs_object
+    from oryon_tpu_torch.data.templates import CLIP_TEMPLATES
+    from oryon_tpu_torch.eval.renderer import max_screen_footprint, pad_mesh, render_depth
+    H, W = hw
+    K = torch.tensor(EVAL_K, dtype=torch.float32, device=device)
+    models = os.path.join(root, "obj_models", "real_test")
+    os.makedirs(models)
+    os.makedirs(os.path.join(root, "gts", "real_test"))
+    infos, names, lines, annots = {}, {}, [], {}
+    for ci, (obj, cls_id, size, words, sym) in enumerate(EVAL_CLASSES):
+        V, F = _box_mesh(np.asarray(size) * scale)
+        base = os.path.join(models, obj)
+        np.savetxt(base + "_vertices.txt", V / 1000.0, fmt="%.6f")
+        np.savetxt(base + "_normals.txt", np.zeros_like(V), fmt="%.1f")
+        with open(base + ".obj", "w") as f:
+            f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in F)
+        model = load_nocs_object(base)          # the values the reader will see
+        mesh = pad_mesh(model["pts"], model["faces"] - 1, device=device)
+        pts = model["pts"]
+        diam = float(np.linalg.norm(pts[:, None] - pts[None], axis=-1).max())
+        infos[obj], names[obj] = {"diameter": diam, **sym}, words
+        scene = ci + 1
+        sdir = os.path.join(root, "split", "real_test", f"scene_{scene}")
+        os.makedirs(sdir)
+        poses, renders, base = [], [], _rotation(rs)
+        for img in range(views):
+            R, t = _random_pose(rs, base)
+            Rt, tt = (torch.tensor(a, dtype=torch.float32, device=device) for a in (R, t))
+            check(float(max_screen_footprint(mesh, Rt, tt, K)) < 32, "tree: triangle too large")
+            d = render_depth(mesh, Rt, tt, K, hw, tile=32).cpu().numpy()
+            check((d > 0).sum() > 500, f"tree: view {img} of {obj} shows {(d > 0).sum()} px")
+            stem = os.path.join(sdir, f"{img:04d}")
+            scene_d = np.where(d > 0, d, 900.0) + rs.randn(H, W) * 2.0
+            Image.fromarray(np.clip(scene_d, 0, 65535).astype(np.uint16)).save(stem + "_depth.png")
+            Image.fromarray(np.where(d > 0, 1, 255).astype(np.uint8)).save(stem + "_mask.png")
+            rgb = rs.randint(0, 256, (H, W, 3))
+            rgb[d > 0] = (rgb[d > 0] // 4 + np.array([200, 120, 40]) * (ci + 1) // 2) % 256
+            Image.fromarray(rgb.astype(np.uint8)).save(stem + "_color.png")
+            with open(stem + "_meta.txt", "w") as f:
+                f.write(f"1 {cls_id} {obj}\n")
+            T = np.eye(4)
+            T[:3, :3], T[:3, 3] = R, t / 1000.0
+            with open(os.path.join(root, "gts", "real_test",
+                                   f"results_real_test_{scene}_{img}.pkl"), "wb") as f:
+                pickle.dump({"gt_RTs": T[None]}, f)
+            poses.append((R, t))
+            renders.append(d)
+        for ia, iq in pairs:
+            (Ra, ta), (Rq, tq) = poses[ia], poses[iq]
+            Rr = Rq @ Ra.T
+            tr = tq - Rr @ ta                    # mm
+            ys, xs = np.nonzero(renders[ia] > 0)
+            take = rs.choice(len(ys), min(400, len(ys)), replace=False)
+            y, x = ys[take], xs[take]
+            z = renders[ia][y, x]
+            pa = np.stack([(x - EVAL_K[0, 2]) * z / EVAL_K[0, 0],
+                           (y - EVAL_K[1, 2]) * z / EVAL_K[1, 1], z], 1)
+            pq = pa @ Rr.T + tr
+            u = np.round(pq[:, 0] / pq[:, 2] * EVAL_K[0, 0] + EVAL_K[0, 2]).astype(int)
+            v = np.round(pq[:, 1] / pq[:, 2] * EVAL_K[1, 1] + EVAL_K[1, 2]).astype(int)
+            ok = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+            ok[ok] &= np.abs(renders[iq][v[ok], u[ok]] - pq[ok, 2]) < 5.0   # visible
+            rel = np.eye(4)
+            rel[:3, :3], rel[:3, 3] = Rr, tr
+            key = f"{scene}_{ia}_{scene}_{iq}_{cls_id}_{obj}"
+            annots[key] = {"gt": rel, "corrs": np.stack([y[ok], x[ok], v[ok], u[ok]], 1)}
+            lines.append(f"test, {scene} {ia}, {scene} {iq}, {cls_id} {obj}\n")
+    with open(os.path.join(models, "models_info.json"), "w") as f:
+        json.dump(infos, f)
+    with open(os.path.join(root, "obj_names.json"), "w") as f:
+        json.dump(names, f)
+    with open(os.path.join(root, "templates.json"), "w") as f:
+        json.dump(list(CLIP_TEMPLATES), f)
+    sp = os.path.join(root, "fixed_split", split)
+    os.makedirs(sp)
+    with open(os.path.join(sp, "instance_list.txt"), "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(sp, "annots.pkl"), "wb") as f:
+        pickle.dump(annots, f)
+    return len(lines)
+
+
+class _NullEvaluator:
+    """Registers nothing: the sweep's time without scoring."""
+    metrics: dict = {}
+
+    def register_test_batch(self, *a, **kw):
+        pass
+
+    def register_test_failure(self, *a, **kw):
+        pass
+
+
+def _eval_overrides(tmp, pd_dir, name):
+    return [f"dataset.root={tmp}", f"dataset.test.name={name}",
+            f"dataset.test.split={EVAL_SPLIT}", "model.size=full", "model.quant=int8",
+            f"dataset.batch_size={EVAL_BATCH}", "test.solver=pointdsc",
+            f"pretrained.pointdsc={pd_dir}", "compute_vsd=true",
+            f"eval.vsd_window={EVAL_WINDOW}", f"exp_root={os.path.join(tmp, 'exp')}",
+            "exp_name=smoke", "eval.ckpt=last", "use_seed=true", "seed=5",
+            *[f"pretrained.{k}={tmp}/no_{k}" for k in ("clip", "swin", "catseg", "vocabulary")]]
+
+
+def _sweep_s(torch, sw, evaluator) -> float:
+    """Seconds of one warm sweep of the split through the test loop."""
+    from oryon_tpu_torch.data.loader import PrefetchLoader
+    from oryon_tpu_torch.pipeline import run_test_epoch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = run_test_epoch(sw.pipe, sw.ds, evaluator, EVAL_BATCH, csv_fp=io.StringIO(),
+                       text_cache=sw.text_cache,
+                       loader=PrefetchLoader(sw.ds, EVAL_BATCH, sort_by_class=True))
+    torch.cuda.synchronize()
+    check(n == len(sw.ds), f"sweep registered {n} of {len(sw.ds)} pairs")
+    return time.perf_counter() - t0
+
+
+def _scored(torch, sw, batch, pred, device):
+    """One batch scored with ``pred`` [B, 4, 4] as the absolute and relative
+    prediction, by a fresh BatchedEvaluator on ``device``: (evaluator,
+    seconds of the scoring call)."""
+    from oryon_tpu_torch.eval.evaluator import BatchedEvaluator
+    ev = BatchedEvaluator("Ours", vsd_window=EVAL_WINDOW, device=device)
+    ev.add_object_info(sw.ds.reader.object_info())
+    ev.init_test()
+    B = len(batch.cls_id)
+    depth = batch.query.eval_depth.to(device)
+    t0 = time.perf_counter()
+    ev.register_test_batch(np.ones(B), np.ones(B), batch.query.pose.cpu().numpy(), pred, pred,
+                           list(batch.cls_id), batch.query.camera.cpu().numpy(), depth,
+                           list(batch.instance_id), depth_index=np.arange(B))
+    return ev, time.perf_counter() - t0
+
+
+@phase("eval")
+def phase_eval(torch, tmp, pd_dir, layers, smi_line):
+    import dataclasses
+
+    import run_test_torch
+    from oryon_tpu_torch.data.loader import PrefetchLoader
+    from oryon_tpu_torch.eval.evaluator import BatchedEvaluator
+    from oryon_tpu_torch.eval.renderer import render_depth_window
+    from oryon_tpu_torch.ops.matching import nn_correspondences_anchors
+    from oryon_tpu_torch.ops.resize import resize_mask_nearest
+    from oryon_tpu_torch.pipeline import _featmap_coords, make_run_fn
+    name = "nocs_smoke"
+    t0 = time.perf_counter()
+    n_pairs = write_real275_tree(os.path.join(tmp, name), np.random.RandomState(21), DEVICE)
+    tree_s = time.perf_counter() - t0
+    argv = _eval_overrides(tmp, pd_dir, name) + ["--device", DEVICE]
+    t0 = time.perf_counter()
+    (sw, counts), text = _printed(lambda: _counted(torch, lambda: run_test_torch.main(argv)))
+    cold_s = time.perf_counter() - t0
+    for want in (f"TESTING on {name}, split {EVAL_SPLIT}. Samples: {n_pairs}",
+                 f"loaded checkpoint epoch {CKPT_EPOCH}", "Ours &", f"registered {n_pairs} pairs"):
+        check(want in text, f"run_test_torch did not print {want!r}")
+    check(counts["k1"] == 2 * layers and counts["k2"] == 2 and sum(counts.values()) == 2 * layers + 2,
+          f"sweep of {n_pairs} pairs: launches {counts}, expected K1 {2 * layers} and K2 2")
+    with open(sw.csv) as f:
+        rows = f.read().splitlines()
+    check(len(rows) == n_pairs and all(len(r.split(",")) == 5 for r in rows),
+          f"CSV: {len(rows)} lines, fields {[len(r.split(',')) for r in rows]}")
+    with open(sw.json) as f:
+        saved = json.load(f)
+    ref = BatchedEvaluator("Ours")
+    ref.init_test()
+    check(set(saved) == set(ref.metrics) | set(ref.counts), f"JSON keys {sorted(saved)}")
+    means = sw.evaluator.get_means()
+    check(all(np.isfinite(v) for v in means.values()), f"means {means}")
+    cfgs = [f for f in os.listdir(os.path.dirname(sw.csv)) if f.startswith("config_")]
+    check(len(cfgs) == 1, f"config files {cfgs}")
+
+    # the ground-truth pose as the prediction, then one 5 cm off
+    batch = next(iter(PrefetchLoader(sw.ds, EVAL_BATCH)))
+    gt = batch.query.pose.cpu().numpy()
+    ev, _ = _scored(torch, sw, batch, gt, DEVICE)
+    _, score_s = _scored(torch, sw, batch, gt, DEVICE)       # warm
+    m = ev.get_means()
+    check(m["R error"] < 0.03 and m["T error"] < 1e-4 and m["ADD(S)-0.1d"] == 1.0
+          and m["MSSD"] == 1.0 and m["MSPD"] == 1.0 and m["VSD"] == 1.0,
+          f"the ground-truth pose scores {m}")
+    off = gt.copy()
+    off[:, 0, 3] += 0.05
+    ev_dev, _ = _scored(torch, sw, batch, off, DEVICE)
+    ev_cpu, _ = _scored(torch, sw, batch, off, "cpu")
+    md, mc = ev_dev.get_means(), ev_cpu.get_means()
+    for k in ("MSSD", "MSPD", "ADD(S)-0.1d", "T error", "VSD"):
+        tol = 0.02 if k == "VSD" else 1e-5    # a render may differ at a silhouette pixel
+        check(abs(md[k] - mc[k]) <= tol, f"5 cm off: {k} {md[k]} on the card, {mc[k]} on the CPU")
+    check(md["MSSD"] < 1.0 and md["VSD"] < 1.0, f"5 cm off still scores {md}")
+
+    # timings: one window render of a batch's poses, warm sweeps
+    c = ev_dev._tensors(batch.cls_id[0])
+    R = torch.as_tensor(gt[:, :3, :3], device=DEVICE)
+    t = torch.as_tensor(gt[:, :3, 3] * 1000, device=DEVICE)
+    K = batch.query.camera.reshape(-1, 3, 3).float()
+    origin = torch.zeros((len(gt), 2), dtype=torch.int64, device=DEVICE)
+    render_ms = cuda_ms(lambda: render_depth_window(
+        c["mesh"], R, t, K, origin, (EVAL_WINDOW, EVAL_WINDOW),
+        BatchedEvaluator.RENDER_CHUNK), 3) / len(gt)
+    ev_w = BatchedEvaluator("Ours", vsd_window=EVAL_WINDOW, device=DEVICE)
+    ev_w.add_object_info(sw.ds.reader.object_info())
+    ev_w.init_test()
+    with_s = _sweep_s(torch, sw, ev_w)
+    without_s = _sweep_s(torch, sw, _NullEvaluator())
+
+    # debug_valid: ground-truth correspondences, one batch, K2 not launched.
+    # RANSAC (the fake PointDSC weights classify inliers at random) and ICP
+    # on the ground-truth masks (the random model's masks are noise) must
+    # find the ground-truth relative pose up to the featmap's quantisation
+    dbg = make_run_fn(sw.model, dataclasses.replace(
+        sw.pcfg, debug_valid=True, solver="ransac", mask_source="oracle"), None)
+    text_emb = sw.text_cache(batch.cls_id, batch.prompt_ids)
+    out, dcounts = _counted(torch, lambda: dbg(batch, text_emb, generator=torch.Generator(
+        device=DEVICE).manual_seed(3)))
+    check(dcounts["k1"] == layers and dcounts["k2"] == 0, f"debug_valid launches {dcounts}")
+    packed = out.packed.cpu().numpy()
+    check(np.isfinite(packed).all() and (packed[:, 32] >= 4).all(),
+          f"debug_valid: n_corrs {packed[:, 32]}")
+    rel_err = _pose_err(packed[:, :16].reshape(-1, 4, 4), batch.rel_pose.cpu().numpy())
+    check(rel_err[0] < DEBUG_ROT_TOL and rel_err[1] < DEBUG_TRANS_TOL,
+          f"debug_valid: relative poses off by {rel_err[0]:.3f} rad, {rel_err[1]:.4f} m")
+
+    # nn_correspondences_anchors from the ground-truth anchor pixels
+    with torch.inference_mode():
+        fo = sw.model(batch.anchor.rgb, batch.query.rgb, None, text_emb)
+        FH, FW = fo.featmap_a.shape[1:3]
+        anchors = _featmap_coords(batch.corrs, batch.anchor.rgb.shape[1:3], (FH, FW))[..., :2]
+        mask_q = resize_mask_nearest(batch.query.mask, (FH, FW))
+        rows, acounts = _counted(torch, lambda: nn_correspondences_anchors(
+            fo.featmap_a, fo.featmap_q, anchors, mask_q))
+        rows_cpu = nn_correspondences_anchors(fo.featmap_a.cpu(), fo.featmap_q.cpu(),
+                                              anchors.cpu(), mask_q.cpu())
+    check(acounts["k2"] == 1, f"nn_correspondences_anchors launches {acounts}")
+    same = float((rows.cpu() == rows_cpu).all(-1).float().mean())
+    check(same > 0.99, f"nn_correspondences_anchors: {same:.4f} of rows equal the CPU's")
+    return {"line": (f"{smi_line}: {n_pairs}-pair REAL275-format tree (2 classes, "
+                     f"{EVAL_HW[0]}x{EVAL_HW[1]}) written in {tree_s:.1f} s; run_test_torch.main "
+                     f"at full width (int8, PointDSC, ICP, VSD window {EVAL_WINDOW}) in "
+                     f"{cold_s:.1f} s cold: {n_pairs} CSV lines, JSON keys as BatchedEvaluator's, "
+                     f"AR {means['AR']:.3f}, launches K1 {counts['k1']} K2 {counts['k2']}; "
+                     f"warm sweep {n_pairs / with_s:.2f} pairs/s with scoring, "
+                     f"{n_pairs / without_s:.2f} without; window render "
+                     f"{render_ms:.3f} ms a pose, scoring {score_s * 1e3:.1f} ms a batch of "
+                     f"{len(gt)}; ground-truth pose: R {m['R error']:.3f} deg, T "
+                     f"{m['T error']:.2e} cm, ADD(S)/MSSD/MSPD/VSD recall 1; 5 cm off: MSSD "
+                     f"{md['MSSD']:.3f} MSPD {md['MSPD']:.3f} VSD {md['VSD']:.3f} (CPU "
+                     f"{mc['VSD']:.3f}); debug_valid (RANSAC, ICP on the GT masks): K1 "
+                     f"{dcounts['k1']} K2 0, relative poses within {rel_err[0]:.3f} rad / "
+                     f"{rel_err[1]:.4f} m of the ground truth; "
+                     f"nn_correspondences_anchors K2 {acounts['k2']}, rows equal the CPU's "
+                     f"{same:.4f}"),
+            "pairs_s": n_pairs / with_s, "pairs_s_unscored": n_pairs / without_s,
+            "render_ms": render_ms, "score_ms": score_s * 1e3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -1371,17 +1756,21 @@ def main(argv=None) -> int:
         "k4": phase_k4(torch, TIMED_LAUNCHES),
         "k2": phase_k2(torch, TIMED_LAUNCHES),
     }
+    measured["k1f32"] = measured["k1"]["f32"]
     if args.kernels:
         return 0
     phase_register(torch)
     counts, pred, reqs = phase_serve(torch, TIMED_BATCHES, args.profile)["state"]
     counts.update(phase_serve_optin(torch, pred, reqs, TIMED_BATCHES)["counts"])
+    counts["k1f32"] = phase_serve_small(torch)["counts"]["k1"]
     layers = pred.model.vision_cfg.layers
     tmp = tempfile.mkdtemp(prefix="oryon_smoke_")
     try:
         pd_dir = phase_ckpt(torch, pred, reqs, tmp)["pd_dir"]
         del pred
         phase_cli(torch, tmp, pd_dir, layers)
+        torch.cuda.empty_cache()
+        phase_eval(torch, tmp, pd_dir, layers, dev["smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_bench(torch, dev["smi"], layers)
@@ -1389,6 +1778,8 @@ def main(argv=None) -> int:
         ("k1", "fused_mha_lanes_qkv", "mha_lanes.cu", "oryon_tpu/ops/pallas/mha_lanes.py:121"),
         ("k1i8", "fused_mha_lanes_qkv(qk_int8=True)", "mha_lanes.cu",
          "oryon_tpu/ops/pallas/mha_lanes.py:72"),
+        ("k1f32", "fused_mha_lanes_qkv (f32)", "attn_f32.cuh",
+         "oryon_tpu/ops/pallas/mha_lanes.py:45"),
         ("k2", "masked_argmin", "match_kernel.cu", "oryon_tpu/ops/pallas/match_kernel.py:60"),
         ("k3", "packed_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:90"),
         ("k4", "band_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:204"),

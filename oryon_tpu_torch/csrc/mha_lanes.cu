@@ -49,7 +49,12 @@
 //    block, ten times a head, on the CUDA cores that the softmax needs.
 //  * Head dimensions 16, 32 and 128: each block of the WMMA kernel quantises
 //    its Q tile and every K tile while copying them to shared memory.
+//
+// f32 qkv (the small and tiny towers compute in f32): the CUDA-core kernel
+// of attn_f32.cuh at head dimensions 16, 32, 64 and 128, with the TPU
+// kernel's f32 arithmetic (see there).
 
+#include "attn_f32.cuh"
 #include "attn_stream.cuh"
 #include "attn_wgmma.cuh"
 
@@ -180,6 +185,20 @@ extern "C" int oryon_fused_mha_lanes_wgmma_bf16(const void* qkv,
   }
   return int(oryon_attn_wg::launch_packed(qkv, kmask, out, B, L, C, heads, scale,
                                           static_cast<cudaStream_t>(stream)));
+}
+
+// The same in f32: qkv [B, L, 3C] f32, kmask [L] f32, out [B, L, C] f32, all
+// contiguous; C / heads in {16, 32, 64, 128} (the CUDA-core kernel).
+extern "C" int oryon_fused_mha_lanes_f32(const void* qkv, const void* kmask,
+                                         void* out, int B, int L, int C,
+                                         int heads, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || heads <= 0 || C % heads != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(oryon_attn_f32::launch(
+      static_cast<const float*>(qkv), static_cast<const float*>(kmask),
+      static_cast<float*>(out), B, L, C, heads, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The same with int8 logits, C / heads in {16, 32, 128}.  absmax:

@@ -33,6 +33,8 @@ class PairBatch(NamedTuple):
     rel_pose: Optional[torch.Tensor]    # [B, 4, 4] GT relative pose A -> Q
     cls_id: np.ndarray         # [B] host-side class ids
     instance_id: np.ndarray    # [B] host-side instance tags
+    id_a: Optional[np.ndarray] = None   # [B] host-side anchor ids "scene img obj"
+    id_q: Optional[np.ndarray] = None   # [B] host-side query ids
 
     @property
     def batch_size(self) -> int:

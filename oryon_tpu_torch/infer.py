@@ -105,6 +105,28 @@ def full_precision_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def model_from_config(cfg, generator: Optional[torch.Generator] = None):
+    """The model of the config tree, on the host: ``cfg.model.size/quant/
+    attn_impl``; weights random from ``generator`` (default: seeded with
+    ``cfg.seed`` if ``cfg.use_seed`` else 1), then the pretrained assets at
+    size full (the report printed), then the checkpoint ``cfg.eval.ckpt``
+    of the experiment.  Returns (model, epoch): the restored epoch, -1 when
+    the experiment has no such checkpoint, None when ``eval.ckpt`` is empty."""
+    size = cfg.model.size
+    model = build_model(size, quant=resolve_quant(size, cfg.model.quant),
+                        attn_impl=resolve_attn_impl(size, cfg.model.attn_impl))
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed if cfg.use_seed else 1)
+    random_init_(model, generator)
+    if size == "full":
+        for line in load_pretrained_params(cfg, model):
+            print(line)
+    epoch = None
+    if cfg.eval.ckpt is not None and str(cfg.eval.ckpt) != "":
+        epoch, _ = restore_checkpoint(cfg, model, str(cfg.eval.ckpt))
+    return model, epoch
+
+
 class OryonPredictor:
     """Long-lived inference engine over a fixed (batch, depth-frame) shape.
 
@@ -172,17 +194,8 @@ class OryonPredictor:
         ``cfg.exp_name``.  An experiment without checkpoints prints a warning
         and serves the weights it has.  All of it happens on the host; the
         constructor then moves the one copy to ``device``."""
-        size = cfg.model.size
-        model = build_model(size, quant=resolve_quant(size, cfg.model.quant),
-                            attn_impl=resolve_attn_impl(size, cfg.model.attn_impl))
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed if cfg.use_seed else 1)
-        random_init_(model, generator)
-        if size == "full":
-            for line in load_pretrained_params(cfg, model):
-                print(line)
-        if cfg.eval.ckpt is not None and str(cfg.eval.ckpt) != "":
-            epoch, _ = restore_checkpoint(cfg, model, str(cfg.eval.ckpt))
+        model, epoch = model_from_config(cfg, generator)
+        if epoch is not None:
             if epoch >= 0:
                 print(f"loaded checkpoint epoch {epoch}")
             else:

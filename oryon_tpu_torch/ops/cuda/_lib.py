@@ -36,6 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "oryon_fused_mha_lanes_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_wgmma_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_fused_mha_lanes_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_i8qk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_i8qk_wgmma_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                               _F, _I, _P],

@@ -21,7 +21,12 @@ serves which shape (``kernel_entry``):
   for the logits), entry ``oryon_fused_mha_lanes_i8qk_wgmma_bf16``;
 - ``qk_int8=True`` at head dimensions 16, 32 and 128: the WMMA streaming
   kernel with int8 logits (each block quantises the tiles it loads), entry
-  ``oryon_fused_mha_lanes_i8qk_bf16``.
+  ``oryon_fused_mha_lanes_i8qk_bf16``;
+- an f32 qkv (the small and tiny towers), head dimensions 16, 32, 64 and
+  128: the CUDA-core streaming kernel of ``csrc/attn_f32.cuh``, entry
+  ``oryon_fused_mha_lanes_f32``, with the TPU kernel's f32 arithmetic (scale
+  folded into q when exact, f32 exponentials and sums, division last).
+  ``qk_int8`` takes bf16 only, as in the JAX package.
 
 ``qk_int8=True`` forms the logits from int8 codes: per (image, head),
 ``q * scale`` and ``k`` are quantised by the absmax of their whole [L, hd]
@@ -99,11 +104,17 @@ def reference_mha(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     return o.transpose(1, 2).reshape(B, L, C)
 
 
-def kernel_entry(head_dim: int, qk_int8: bool) -> str:
-    """The C entry point that serves this head dimension (see the module
-    docstring)."""
+def kernel_entry(head_dim: int, qk_int8: bool, dtype=torch.bfloat16) -> str:
+    """The C entry point that serves this head dimension and dtype (see the
+    module docstring)."""
     if head_dim not in (16, 32, 64, 128):
         raise ValueError(f"head dim {head_dim} not in (16, 32, 64, 128)")
+    if dtype == torch.float32:
+        if qk_int8:
+            raise TypeError("qk_int8 takes a bf16 qkv")
+        return "oryon_fused_mha_lanes_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"kernel takes a bf16 or f32 qkv, got {dtype}")
     if qk_int8:
         return ("oryon_fused_mha_lanes_i8qk_wgmma_bf16" if head_dim == 64
                 else "oryon_fused_mha_lanes_i8qk_bf16")
@@ -145,7 +156,7 @@ def _launch(lib, qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     global launches, launches_i8
     B, L, C3 = qkv.shape
     C = C3 // 3
-    fn = getattr(lib, kernel_entry(C // heads, qk_int8))
+    fn = getattr(lib, kernel_entry(C // heads, qk_int8, qkv.dtype))
     out = torch.empty((B, L, C), dtype=qkv.dtype, device=qkv.device)
     if qk_int8:
         absmax, codes = _i8_scratch(qkv, heads)
@@ -172,8 +183,8 @@ def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
 
     qkv: [B, L, 3C] packed in_proj output; kmask: [L] additive f32 (0 for
     real keys, -1e9 for padding).  Returns [B, L, C] in qkv's dtype.  On a
-    CUDA device qkv must be bf16 and contiguous with C / heads in
-    {16, 32, 64, 128}; L needs no alignment.
+    CUDA device qkv must be bf16 (or f32 without ``qk_int8``) and contiguous
+    with C / heads in {16, 32, 64, 128}; L needs no alignment.
     """
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % heads:
         raise ValueError(f"qkv {tuple(qkv.shape)} is not [B, L, 3C] with "
@@ -187,11 +198,11 @@ def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     if qkv.device.type != "cuda" or kmask.device != qkv.device:
         raise ValueError(f"qkv on {qkv.device}, kmask on {kmask.device}: "
                          "need both on one CUDA device")
-    if qkv.dtype != torch.bfloat16 or kmask.dtype != torch.float32:
-        raise TypeError(f"kernel takes bf16 qkv and f32 kmask, got "
-                        f"{qkv.dtype} and {kmask.dtype}")
+    if kmask.dtype != torch.float32:
+        raise TypeError(f"kernel takes an f32 kmask, got {kmask.dtype}")
     if not (qkv.is_contiguous() and kmask.is_contiguous()):
         raise ValueError("qkv and kmask must be contiguous")
-    kernel_entry(C // heads, qk_int8)   # raises on a head dim without a kernel
+    # raises on a dtype or head dim without a kernel
+    kernel_entry(C // heads, qk_int8, qkv.dtype)
     return _launch(_lib.library(), qkv, kmask, heads, scale, qk_int8,
                    torch.cuda.current_stream(qkv.device).cuda_stream)

@@ -12,13 +12,18 @@ inlier_rate | feat_ratio.
 Randomness: PyTorch cannot reproduce JAX's random streams, so every random
 input is drawn in one place, ``draw_noise``, and every stage that uses noise
 takes it as an argument.  A test can rebuild the same arrays from JAX keys.
+
+The evaluation loop is here too: ``run_test_epoch`` drives a batch program
+over a dataset and registers every pair with an evaluator, writing the
+prediction CSV; ``make_text_cache`` encodes each class's prompts once.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from oryon_tpu_torch.data.pair_batch import PairBatch, PairView
@@ -43,6 +48,7 @@ class PipelineConfig:
     match: MatchParams = MatchParams()
     ransac_hypotheses: int = 1024
     ransac_match_err: float = 0.001
+    debug_valid: bool = False           # GT corrs -> solver upper bound
     icp_refine: bool = False
     icp_points: int = 512
     icp_iters: int = 48
@@ -140,6 +146,27 @@ def _icp_refine_pose(noise_a, noise_q, T, n_corrs, mask_a, mask_q, A: PairView,
     return torch.where((n_corrs >= 4)[:, None, None], T_ref, T)
 
 
+def _featmap_coords(corrs: torch.Tensor, in_hw, feat_hw) -> torch.Tensor:
+    """Input-frame (y1, x1, y2, x2) rows [B, N, 4] scaled to the featmap
+    frame, clipped into it and truncated to int64."""
+    FH, FW = feat_hw
+    fc = scale_coords(corrs.float(), in_hw, feat_hw)
+    hi = torch.tensor([FH - 1, FW - 1, FH - 1, FW - 1], device=fc.device)
+    return torch.minimum(torch.clamp(fc, min=0), hi).long()
+
+
+def _gt_featmap_corrs(batch: PairBatch, feat_hw, max_corrs: int):
+    """The annotated correspondences in the featmap frame, padded with
+    invalid rows or cut to ``max_corrs`` (``debug_valid``)."""
+    fc = _featmap_coords(batch.corrs, batch.anchor.rgb.shape[1:3], feat_hw)
+    valid = batch.corr_valid.bool()
+    pad = max_corrs - fc.shape[1]
+    if pad > 0:
+        return (torch.nn.functional.pad(fc, (0, 0, 0, pad)),
+                torch.nn.functional.pad(valid, (0, pad)))
+    return fc[:, :max_corrs], valid[:, :max_corrs]
+
+
 def _pose_from_corrs(noise_ransac, pa, pq, w, cfg: PipelineConfig,
                      pointdsc: Optional[PointDSC]):
     """Register lifted correspondences (``_lift_corrs``) with weights w [B, N].
@@ -154,18 +181,14 @@ def _pose_from_corrs(noise_ransac, pa, pq, w, cfg: PipelineConfig,
 def make_pipeline_config(cfg, solver: str,
                          mask_source: Optional[str] = None) -> PipelineConfig:
     """PipelineConfig from the config tree (``config.Config``): the one
-    place where ``cfg.test.*`` becomes pipeline settings.  ``mask_source``
-    overrides ``cfg.test.mask``.  ``cfg.debug_valid`` (ground-truth
-    correspondences in place of matching, an evaluation probe) is not part
-    of the serving path and raises."""
-    if cfg.debug_valid:
-        raise NotImplementedError(
-            "debug_valid (ground-truth correspondences) belongs to the "
-            "evaluation entry point, which is not ported yet")
+    place where ``cfg.test.*`` and ``cfg.debug_valid`` (ground-truth
+    correspondences in place of matching, the solver's upper bound) become
+    pipeline settings.  ``mask_source`` overrides ``cfg.test.mask``."""
     return PipelineConfig(
         mask_source=cfg.test.mask if mask_source is None else mask_source,
         mask_threshold=cfg.test.mask_threshold,
         solver=solver,
+        debug_valid=cfg.debug_valid,
         match=MatchParams(src_capacity=5120, max_corrs=cfg.test.n_corrs,
                           dist_th=cfg.test.dist_th),
         icp_refine=cfg.test.icp_refine,
@@ -260,10 +283,14 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
         iou_q = mask_iou(gt_q, pred_mask_q)
         det_valid = (match_a.sum(dim=(1, 2)) > 0) & (match_q.sum(dim=(1, 2)) > 0)
 
-        corr = nn_correspondences(out.featmap_a, out.featmap_q, match_a, match_q,
-                                  noise.match_src, noise.match_out, cfg.match)
+        if cfg.debug_valid:
+            corrs_yx, corr_valid = _gt_featmap_corrs(batch, (FH, FW), cfg.match.max_corrs)
+        else:
+            corr = nn_correspondences(out.featmap_a, out.featmap_q, match_a, match_q,
+                                      noise.match_src, noise.match_out, cfg.match)
+            corrs_yx, corr_valid = corr.yx, corr.valid
         mark("match")
-        pa, pq, ok = _lift_corrs(corr.yx, corr.valid, A.orig_depth, Q.orig_depth,
+        pa, pq, ok = _lift_corrs(corrs_yx, corr_valid, A.orig_depth, Q.orig_depth,
                                  A.camera, Q.camera, A.size, Q.size, (FH, FW))
         w = ok.float()
         T_rel, n_corrs = _pose_from_corrs(noise.ransac, pa, pq, w, cfg, pointdsc)
@@ -275,10 +302,7 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
 
         # learning-signal metrics: FMR at the GT correspondence pixels and
         # the geometric inlier rate of the predicted matches under GT pose
-        ih, iw = A.rgb.shape[1:3]
-        sig = scale_coords(batch.corrs.float(), (ih, iw), (FH, FW))
-        hi = torch.tensor([FH - 1, FW - 1, FH - 1, FW - 1], device=sig.device)
-        sig = torch.minimum(torch.clamp(sig, min=0), hi).long()
+        sig = _featmap_coords(batch.corrs, A.rgb.shape[1:3], (FH, FW))
         bidx = torch.arange(B, device=sig.device)[:, None]
         fmr_v, feat_ratio = fmr(out.featmap_a[bidx, sig[..., 0], sig[..., 1]],
                                 out.featmap_q[bidx, sig[..., 2], sig[..., 3]],
@@ -303,9 +327,190 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
         return PipelineOutputs(
             pred_rel_pose=T_rel, pred_pose=pred_q, n_corrs=n_corrs,
             detection_valid=det_valid, iou_a=iou_a, iou_q=iou_q,
-            mask_a=pred_mask_a, mask_q=pred_mask_q, corrs=corr.yx,
-            corr_valid=corr.valid, packed=packed, fmr=fmr_v,
+            mask_a=pred_mask_a, mask_q=pred_mask_q, corrs=corrs_yx,
+            corr_valid=corr_valid, packed=packed, fmr=fmr_v,
             inlier_rate=inlier_rate, feat_ratio=feat_ratio)
 
     return run
 
+
+
+def _viz_tracked(viz_dir, dataset, batch: PairBatch, out: PipelineOutputs):
+    """Render the tracked pairs of a batch (masks and correspondences)."""
+    from oryon_tpu_torch.utils import viz
+
+    tracked = getattr(dataset, "tracked_instances", None)
+    if not tracked:
+        return
+    FH, FW = out.mask_a.shape[1:3]
+    for i, iid in enumerate(batch.instance_id):
+        if str(iid) not in tracked:
+            continue
+        rgb_a = batch.anchor.rgb[i].cpu().numpy()
+        rgb_q = batch.query.rgb[i].cpu().numpy()
+        if rgb_a.dtype == np.uint8:
+            rgb_a = rgb_a.astype(np.float32) / 255.0
+            rgb_q = rgb_q.astype(np.float32) / 255.0
+        gt_a = resize_mask_nearest(batch.anchor.mask[i:i + 1], (FH, FW))[0].cpu().numpy()
+        gt_q = resize_mask_nearest(batch.query.mask[i:i + 1], (FH, FW))[0].cpu().numpy()
+        base = os.path.join(viz_dir, str(iid).replace(" ", "_"))
+        viz.pred_mask(rgb_a, rgb_q, gt_a, gt_q, out.mask_a[i].cpu().numpy(),
+                      out.mask_q[i].cpu().numpy(), base + "_mask.png")
+        ih, iw = rgb_a.shape[:2]
+        rows = out.corrs[i].cpu().numpy().astype(np.float64)
+        rows[:, 0] *= ih / FH
+        rows[:, 1] *= iw / FW
+        rows[:, 2] *= ih / FH
+        rows[:, 3] *= iw / FW
+        viz.corr_set(rgb_a, rgb_q, rows, out.corr_valid[i].cpu().numpy(),
+                     base + "_corrs.png")
+
+
+def make_text_cache(model: OryonModel):
+    """Per-class prompt-embedding cache: each distinct class's prompts are
+    encoded once and reused across the sweep.  Returns get(cls_ids,
+    prompt_ids [B, P, L]) -> [B, P, D]."""
+    cache: Dict[str, torch.Tensor] = {}
+
+    def get(cls_ids, prompt_ids: torch.Tensor) -> torch.Tensor:
+        rows = []
+        for i, c in enumerate(cls_ids):
+            k = str(c)
+            if k not in cache:
+                with torch.inference_mode():
+                    cache[k] = model.encode_prompts(prompt_ids[i: i + 1])[0]
+            rows.append(cache[k])
+        return torch.stack(rows)
+
+    return get
+
+
+def run_test_epoch(pipeline_fn, dataset, evaluator, batch_size: int, csv_fp=None,
+                   compute_vsd: bool = True, text_cache=None, save_hook=None,
+                   viz_dir=None, loader=None, drain_lookahead: int = 3,
+                   step_profiler=None) -> int:
+    """Run ``pipeline_fn(batch, text_emb) -> PipelineOutputs`` over every
+    batch and register each pair with ``evaluator``; returns the number of
+    pairs registered (pads excluded).
+
+    ``loader``: an iterable of batches (``data.loader.PrefetchLoader``),
+    else the dataset's own ``batches`` grouped by class.  The calling thread
+    only dispatches batches; a drain thread does the per-batch work that
+    waits for the device (the one fetch of the packed [B, 39] outputs, the
+    save and viz hooks, the CSV lines, the evaluator's scoring), behind a
+    queue of ``drain_lookahead`` batches.  The order is first in, first out,
+    so CSV rows and registrations come in the serial loop's order.  An error
+    in the drain thread stops the dispatch and is raised on the caller's
+    thread."""
+    import queue as _queue
+    import threading
+
+    def dispatch(batch):
+        text_emb = (text_cache(batch.cls_id, batch.prompt_ids)
+                    if text_cache is not None else None)
+        return pipeline_fn(batch, text_emb)
+
+    it = iter(loader if loader is not None
+              else dataset.batches(batch_size, sort_by_class=True))
+    state = {"n": 0, "err": None}
+    q: "_queue.Queue" = _queue.Queue(maxsize=max(1, drain_lookahead))
+
+    def drain():
+        with torch.inference_mode():
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if state["err"] is not None:
+                    continue  # keep unblocking the producer until the sentinel
+                bi, batch, out = item
+                try:
+                    if save_hook is not None:
+                        save_hook(bi, batch, out)
+                    if viz_dir is not None:
+                        _viz_tracked(viz_dir, dataset, batch, out)
+                    state["n"] += _register_batch(evaluator, batch, out, csv_fp,
+                                                  compute_vsd)
+                except BaseException as e:  # raised again on the caller's thread
+                    state["err"] = e
+
+    t = threading.Thread(target=drain, daemon=True, name="oryon-test-drain")
+    t.start()
+    try:
+        with torch.inference_mode():
+            for bi, nxt in enumerate(it):
+                if state["err"] is not None:
+                    break
+                q.put((bi, nxt, dispatch(nxt)))
+                if step_profiler is not None:
+                    step_profiler.step()
+    finally:
+        q.put(None)
+        t.join()
+        if step_profiler is not None:
+            step_profiler.close()
+    if state["err"] is not None:
+        raise state["err"]
+    return state["n"]
+
+
+def _register_batch(evaluator, batch: PairBatch, out: PipelineOutputs, csv_fp,
+                    compute_vsd: bool) -> int:
+    """Register one batch's pairs (pads skipped) and write their CSV lines."""
+    from oryon_tpu_torch.eval.evaluator import pred_pose_csv_line
+
+    B = batch.corrs.shape[0]
+    packed = out.packed.cpu().numpy()     # the one fetch of the batch's scalars
+    pred_rel = packed[:, :16].reshape(B, 4, 4)
+    pred_q = packed[:, 16:32].reshape(B, 4, 4)
+    n_corrs = packed[:, 32]
+    det = packed[:, 33] > 0
+    iou_a, iou_q = packed[:, 34], packed[:, 35]
+    fmr_v, inl_v, ratio_v = packed[:, 36], packed[:, 37], packed[:, 38]
+    valid = np.asarray(batch.valid)
+    gt_pose_q = batch.query.pose.cpu().numpy()
+    cameras = batch.query.camera.cpu().numpy().reshape(B, 3, 3)
+    # the scene depths stay on the device: the batched evaluator picks and
+    # casts its rows there
+    depths_dev = batch.query.eval_depth
+    depths = None
+
+    batched = hasattr(evaluator, "register_test_batch")
+    ok_idx = [i for i in range(B) if valid[i] != 0 and det[i] and n_corrs[i] >= 4]
+    if batched and ok_idx:
+        sel = np.asarray(ok_idx)
+        evaluator.register_test_batch(
+            iou_a[sel], iou_q[sel], gt_pose_q[sel], pred_q[sel], pred_rel[sel],
+            [batch.cls_id[i] for i in ok_idx], cameras[sel],
+            depths_dev if compute_vsd else None,
+            [batch.instance_id[i] for i in ok_idx], depth_index=sel)
+    # learning-signal metrics for every live pair, detected or not
+    if hasattr(evaluator, "register_signal") and "FMR" in evaluator.metrics:
+        live = [i for i in range(B) if valid[i] != 0]
+        if live:
+            evaluator.register_signal(fmr_v[live], inl_v[live], ratio_v[live])
+    n_registered = 0
+    for i in range(B):
+        if valid[i] == 0:  # padding rows
+            continue
+        n_registered += 1
+        if det[i] and n_corrs[i] >= 4:
+            if not batched:
+                if depths is None and compute_vsd:
+                    depths = depths_dev.cpu().numpy()
+                evaluator.register_test(
+                    iou_a[i], iou_q[i], gt_pose=gt_pose_q[i], pred_pose=pred_q[i],
+                    pred_pose_rel=pred_rel[i], camera=cameras[i],
+                    depth=depths[i] if compute_vsd else None,
+                    cls_id=batch.cls_id[i], instance_id=batch.instance_id[i])
+            pose_out = pred_rel[i]
+        else:
+            evaluator.register_test_failure(iou_a[i], iou_q[i], cls_id=batch.cls_id[i],
+                                            instance_id=batch.instance_id[i])
+            pose_out = np.eye(4)
+        if csv_fp is not None:
+            ia = batch.id_a[i] if batch.id_a is not None else batch.instance_id[i]
+            iq = batch.id_q[i] if batch.id_q is not None else batch.instance_id[i]
+            csv_fp.write(pred_pose_csv_line(str(ia), str(iq), float(iou_a[i]),
+                                            float(iou_q[i]), pose_out))
+    return n_registered

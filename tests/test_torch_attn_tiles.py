@@ -265,6 +265,26 @@ def test_k1_wrapper_chooses_the_kernel_by_shape(hd, qk_int8, entry):
     assert after == (before[0] + (not qk_int8), before[1] + qk_int8)
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_k1_f32_mode_chooses_the_cuda_core_kernel(hd):
+    """An f32 qkv goes to the CUDA-core kernel at every head dim, counted on
+    K1's counter; with int8 logits it is refused (bf16 only, as in JAX)."""
+    from oryon_tpu_torch.ops.cuda import _lib, mha_lanes
+
+    stub = StubLib()
+    qkv = torch.zeros(1, 8, 3 * 2 * hd)
+    before = mha_lanes.launches
+    out = mha_lanes._launch(stub, qkv, torch.zeros(8), 2, hd ** -0.5, False, 0)
+    assert out.shape == (1, 8, 2 * hd) and out.dtype == torch.float32
+    entry = "oryon_fused_mha_lanes_f32"
+    assert stub.calls == [(entry, len(_lib.SIGNATURES[entry]))]
+    assert mha_lanes.launches == before + 1
+    with pytest.raises(TypeError):
+        mha_lanes.kernel_entry(hd, True, torch.float32)
+    with pytest.raises(TypeError):
+        mha_lanes.kernel_entry(hd, False, torch.float16)
+
+
 @pytest.mark.parametrize("D,entry", [(64, "oryon_flash_mha_wgmma_bf16"),
                                      (16, "oryon_flash_mha_bf16"),
                                      (32, "oryon_flash_mha_bf16"),

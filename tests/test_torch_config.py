@@ -73,8 +73,10 @@ def test_make_pipeline_config_field_by_field(overrides, solver, mask_source):
     if not overrides:   # the shipped ICP defaults, whichever way they are reached
         assert (got.icp_refine, got.icp_points, got.icp_iters, got.icp_trim) == (
             True, 1024, 48, 0.6)
-    with pytest.raises(NotImplementedError, match="debug_valid"):
-        make_pipeline_config(tcfg.load_config(YAML, ["debug_valid=true"]), solver)
+    # debug_valid (ground-truth correspondences) reaches the pipeline, as in JAX
+    dbg = ["debug_valid=true"] + overrides
+    assert make_pipeline_config(tcfg.load_config(YAML, dbg), solver).debug_valid is True
+    assert jmake(jcfg.load_config(YAML, dbg), solver).debug_valid is True
 
 
 def test_predictor_icp_defaults_come_from_test_config():
@@ -177,7 +179,7 @@ def _imports_and_joins(path):
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "oryon_tpu_torch", "**", "*.py"),
                               recursive=True)) + [
     os.path.join(ROOT, name) for name in ("chip_smoke.py", "run_infer_torch.py",
-                                          "bench_torch.py")]
+                                          "bench_torch.py", "run_test_torch.py")]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))

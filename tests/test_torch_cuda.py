@@ -61,6 +61,30 @@ def test_mha_kernel_matches_plain(cuda, B, L, H, hd, real, lead):
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
 
 
+# K1's f32 mode: the small / tiny towers' shapes, every head dim, ragged L
+MHA_F32_CASES = [(2, 65, 4, 16, 65), (2, 17, 4, 16, 17), (2, 130, 8, 32, 100),
+                 (1, 577, 16, 64, 560), (1, 70, 2, 128, 64), (3, 1, 2, 16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,hd,real", MHA_F32_CASES)
+def test_mha_f32_kernel_matches_plain(cuda, B, L, H, hd, real):
+    """K1's f32 mode (CUDA cores) vs its plain version in f32, to 1e-5;
+    one launch counted a call."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    rs = np.random.RandomState(1)
+    q = torch.from_numpy(rs.randn(B, L, 3 * H * hd).astype(np.float32)).to(cuda)
+    m = torch.where(torch.arange(L) < real, 0.0, -1e9).to(cuda)
+    before = mha_lanes.launches
+    got = mha_lanes.fused_mha_lanes_qkv(q, m, H, hd ** -0.5)
+    assert mha_lanes.launches == before + 1 and got.dtype == torch.float32
+    ref = mha_lanes.reference_mha(q, m, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() < 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_argmin_kernel_matches_plain(cuda, precision):
@@ -362,43 +386,119 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.cuda
 def test_from_config_serves_a_checkpoint_on_the_card(cuda, tmp_path, capsys):
-    """A tiny model saved with the port's ``save_checkpoint`` and restored by
-    ``from_config`` on the card (its own init seed differs): the weights on
-    the device are the saved ones, and a pair is answered with a finite pose.
-    The tiny model computes in f32 and K1 takes bf16 only, so its tower
-    answers through einsum attention here."""
+    """A small model saved with the port's ``save_checkpoint`` and restored
+    by ``from_config`` on the card (its own init seed differs): the weights
+    on the device are the saved ones, and a pair is answered with a finite
+    pose.  The small model computes in f32: its tower goes through K1's f32
+    mode (2 layers, so 2 launches) and matching through K2."""
     from oryon_tpu_torch import checkpoint as ckpt
     from oryon_tpu_torch import config as tcfg
     from oryon_tpu_torch.infer import OryonPredictor
     from oryon_tpu_torch.models.layers import random_init_
-    from oryon_tpu_torch.models.oryon import tiny_oryon
+    from oryon_tpu_torch.models.oryon import small_oryon
+    from oryon_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     cfg = tcfg.load_config(None, [
-        "model.size=tiny", "dataset.batch_size=2", "dataset.img_size=[64, 64]",
+        "model.size=small", "dataset.batch_size=2", "dataset.img_size=[64, 64]",
         "test.n_corrs=64", "test.solver=ransac", "test.icp_points=128", "test.icp_iters=4",
         f"exp_root={tmp_path}", "exp_name=card", "eval.ckpt=last", "use_seed=true", "seed=3",
         f"pretrained.pointdsc={tmp_path}/none"])
     ckpt.init_experiment(cfg)
-    saved = random_init_(tiny_oryon(), torch.Generator().manual_seed(8))
+    saved = random_init_(small_oryon(), torch.Generator().manual_seed(8))
     ckpt.save_checkpoint(cfg, 5, saved)
     pred = OryonPredictor.from_config(cfg, depth_hw=(48, 64))
     assert "loaded checkpoint epoch 5" in capsys.readouterr().out
     assert pred.device.type == "cuda"
     for k, v in pred.model.state_dict().items():
         assert v.is_cuda and torch.equal(v.cpu(), saved.state_dict()[k]), k
-
-    def tokenize(prompt):     # tiny has 600 token ids
-        ids = np.zeros((8, 16), np.int32)
-        ids[:, 0], ids[:, 1], ids[:, 2] = 598, len(prompt) % 500 + 1, 599
-        return ids
-    pred._tokenize = tokenize
-    for blk in pred.model.vlm_visual.resblocks:
-        blk.attn.attn_impl = "einsum"
+    assert all(blk.attn.attn_impl == "fused" for blk in pred.model.vlm_visual.resblocks)
     rs = np.random.RandomState(9)
 
     def view():
         return {"rgb": (rs.rand(64, 64, 3) * 255).astype(np.uint8),
                 "depth": (rs.rand(48, 64) * 300 + 600).astype(np.float32),
                 "camera": [60.0, 60.0, 32.0, 24.0]}
+    reset_launch_counts()
     res = pred.predict_pair(view(), view(), "mug")
     assert np.isfinite(np.asarray(res["pose"])).all()
+    counts = launch_counts()
+    assert counts["k1"] == 2 and counts["k2"] == 1, counts
+
+
+@pytest.mark.cuda
+def test_renderer_and_bop_on_the_card_match_the_cpu(cuda):
+    """The window render, MSSD, MSPD and VSD of the same poses on the card
+    and on the CPU: renders equal but for a few silhouette pixels, errors
+    within 1e-4 (relative), VSD errors within 5e-3, recalls equal."""
+    from oryon_tpu_torch.eval import bop
+    from oryon_tpu_torch.eval.renderer import pad_mesh, render_depth_window, subdivide_mesh
+
+    h = np.array([50.0, 40.0, 30.0])
+    V = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)]) * h
+    F = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                  [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    V, F = subdivide_mesh(V, F, 20.0)
+    rs = np.random.RandomState(3)
+    K = np.array([[591.0, 0, 322.5], [0, 590.2, 244.1], [0, 0, 1]], np.float32)
+    R = np.stack([np.linalg.qr(rs.randn(3, 3))[0] for _ in range(4)]).astype(np.float32)
+    R *= np.sign(np.linalg.det(R))[:, None, None]
+    t = np.stack([rs.uniform(-40, 40, 4), rs.uniform(-30, 30, 4), rs.uniform(500, 700, 4)],
+                 1).astype(np.float32)
+    origin = np.array([[140, 220]] * 4)
+    syms = np.stack([np.eye(3, 4), np.diag([-1.0, -1.0, 1.0, 0.0])[:3]]).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = pad_mesh(V, F, device=dev)
+        T = [torch.from_numpy(a).to(dev) for a in (R, t, np.tile(K, (4, 1, 1)), origin)]
+        d = render_depth_window(mesh, T[0], T[1], T[2], T[3], (200, 200), chunk=96)
+        pts = mesh.vertices
+        s = bop.mssd(T[0], T[1], T[0][[1, 2, 3, 0]], T[1], pts, torch.from_numpy(syms).to(dev))
+        p = bop.mspd(T[0], T[1], T[0][[1, 2, 3, 0]], T[1], T[2], pts,
+                     torch.from_numpy(syms).to(dev))
+        v = bop.vsd_errors(d, d[[1, 2, 3, 0]], d + 3.0, T[2], 15.0, [0.05 * i for i in range(1, 11)],
+                           120.0, origin=T[3])
+        out[str(dev)] = [x.cpu().numpy() for x in (d, s, p, v, bop.mssd_recall(s, 120.0),
+                                                   bop.mspd_recall(p), bop.vsd_recall(v))]
+    c, g = out["cpu"], out["cuda"]
+    cover = (c[0] > 0) != (g[0] > 0)
+    assert (c[0] > 0).sum() > 1000 and cover.sum() <= 8
+    both = (c[0] > 0) & (g[0] > 0)
+    assert np.median(np.abs(c[0][both] - g[0][both])) < 1e-3
+    np.testing.assert_allclose(g[1], c[1], rtol=1e-4)
+    np.testing.assert_allclose(g[2], c[2], rtol=1e-4)
+    np.testing.assert_allclose(g[3], c[3], atol=5e-3)
+    for a, b in zip(g[4:], c[4:]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_run_test_torch_main_at_small_size_on_the_card(cuda, tmp_path, capsys):
+    """The evaluation CLI with the small model on the card (its f32 tower
+    through K1's f32 mode): a 4-pair REAL275-format tree, VSD on, RANSAC
+    and ICP; the JAX CLI's lines, the CSV and the metrics JSON; K1 two
+    launches a batch (2 layers), K2 one."""
+    import json
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    import run_test_torch
+    from oryon_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    n = chip_smoke.write_real275_tree(str(tmp_path / "nocs_c"), np.random.RandomState(4),
+                                      cuda, views=2, pairs=((0, 1), (1, 0)), scale=0.6)
+    reset_launch_counts()
+    sw = run_test_torch.main([
+        f"dataset.root={tmp_path}", "dataset.test.name=nocs_c",
+        f"dataset.test.split={chip_smoke.EVAL_SPLIT}", "model.size=small",
+        "dataset.batch_size=2", "test.solver=ransac", "eval.vsd_window=160",
+        f"exp_root={tmp_path}", "exp_name=card"])
+    counts = launch_counts()
+    out = capsys.readouterr().out
+    assert "registered 4 pairs" in out and "Ours &" in out and sw.n == n == 4
+    assert counts["k1"] == 2 * 2 and counts["k2"] == 2, counts
+    rows = open(sw.csv).read().splitlines()
+    assert len(rows) == 4 and all(len(r.split(",")) == 5 for r in rows)
+    saved = json.load(open(sw.json))
+    assert len(saved["VSD"]) == 4 and all(np.isfinite(saved["AR"]))

@@ -63,8 +63,11 @@ Phases, each printing one line with its result and its time:
                run_test_torch.main at full width: 16 CSV lines, the
                metrics JSON, K1 48 and K2 2 launches; the ground-truth pose
                scores recall 1 (ADD(S), MSSD, MSPD, VSD), a pose 5 cm off
-               scores as on the CPU; warm sweeps with and without scoring,
-               the window render and the scoring of a batch timed;
+               scores as on the CPU; sweeps of the split 8 times over with
+               and without scoring, between two from batches collated
+               beforehand, each batch's time split into loader wait,
+               dispatch and the rest; the window render and the scoring of
+               a batch timed;
                debug_valid (ground-truth correspondences, no K2) and
                nn_correspondences_anchors (one K2 launch) on one batch
  14. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
@@ -1431,6 +1434,7 @@ EVAL_CLASSES = (("box_1", 1, (100.0, 80.0, 60.0), ["box", "carton", "cardboard b
 EVAL_VIEWS = 6
 EVAL_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 4), (2, 5), (3, 4), (4, 5))
 EVAL_SPLIT, EVAL_WINDOW, EVAL_BATCH = "eval_split", 256, 8
+EVAL_REPEATS, EVAL_FILL = 8, 2    # timed sweeps: the split 8 times over, 2 fill batches
 # ground-truth correspondences land on featmap pixels (2.5 px of the 480 x
 # 640 frame) and the depth has 2 mm noise; RANSAC then ICP on the GT masks
 # (the CPU run of the same steps: 0.025 rad, 0.012 m at worst): rad, m
@@ -1580,18 +1584,96 @@ def _eval_overrides(tmp, pd_dir, name):
             *[f"pretrained.{k}={tmp}/no_{k}" for k in ("clip", "swin", "catseg", "vocabulary")]]
 
 
-def _sweep_s(torch, sw, evaluator) -> float:
-    """Seconds of one warm sweep of the split through the test loop."""
+class _Repeated:
+    """The dataset's split ``times`` over: a sweep long enough to reach a
+    steady state.  Sorted by class, its batches stay one class each."""
+
+    def __init__(self, ds, times: int):
+        self.ds, self.instances = ds, list(ds.instances) * times
+
+    def __len__(self) -> int:
+        return len(self.instances)
+
+    def get_pair(self, index: int, train: bool = False):
+        return self.ds.get_pair(index % len(self.ds), train=train)
+
+    def collate(self, pairs, train: bool = False):
+        return self.ds.collate(pairs, train=train)
+
+
+class _TimedScoring:
+    """``evaluator`` with the seconds of each ``register_test_batch`` call
+    (the scoring in the drain thread, its fetches included) kept."""
+
+    def __init__(self, evaluator):
+        self.evaluator, self.seconds = evaluator, []
+
+    def __getattr__(self, name):
+        return getattr(self.evaluator, name)
+
+    def register_test_batch(self, *a, **kw):
+        t0 = time.perf_counter()
+        self.evaluator.register_test_batch(*a, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+
+
+def _split_sweep(torch, sw, evaluator, batches=None) -> dict:
+    """One sweep of the split repeated ``EVAL_REPEATS`` times through the
+    test loop, from the loader (or from ``batches``, collated beforehand).
+
+    The calling thread's time between two batches is split into the wait in
+    ``next()`` on the loader, the pipeline call (dispatch, which returns
+    once the host has enqueued the batch) and the rest (chiefly the wait for
+    room in the drain thread's queue).  Medians over the batches past the
+    first ``EVAL_FILL`` (the pipeline's fill), in ms; ``pairs_s`` is the
+    steady-state rate, ``whole_pairs_s`` the whole sweep's."""
     from oryon_tpu_torch.data.loader import PrefetchLoader
     from oryon_tpu_torch.pipeline import run_test_epoch
+    ds = _Repeated(sw.ds, EVAL_REPEATS)
+    src = iter(batches if batches is not None
+               else PrefetchLoader(ds, EVAL_BATCH, sort_by_class=True))
+    got, wait, disp = [], [], []
+
+    def timed_batches():
+        while True:
+            t0 = time.perf_counter()
+            b = next(src, None)
+            if b is None:
+                return
+            got.append(time.perf_counter())
+            wait.append(got[-1] - t0)
+            yield b
+
+    def pipe(batch, text_emb):
+        t0 = time.perf_counter()
+        out = sw.pipe(batch, text_emb)
+        disp.append(time.perf_counter() - t0)
+        return out
+
+    scoring = _TimedScoring(evaluator)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n = run_test_epoch(sw.pipe, sw.ds, evaluator, EVAL_BATCH, csv_fp=io.StringIO(),
-                       text_cache=sw.text_cache,
-                       loader=PrefetchLoader(sw.ds, EVAL_BATCH, sort_by_class=True))
+    n = run_test_epoch(pipe, ds, scoring, EVAL_BATCH, csv_fp=io.StringIO(),
+                       text_cache=sw.text_cache, loader=timed_batches())
     torch.cuda.synchronize()
-    check(n == len(sw.ds), f"sweep registered {n} of {len(sw.ds)} pairs")
-    return time.perf_counter() - t0
+    whole = time.perf_counter() - t0
+    check(n == len(ds), f"sweep registered {n} of {len(ds)} pairs")
+    steady = range(EVAL_FILL, len(got) - 1)
+    period = [got[i + 1] - got[i] for i in steady]
+    med = lambda xs: float(np.median(xs)) * 1e3   # noqa: E731
+    return {"pairs_s": EVAL_BATCH * 1e3 / med(period), "whole_pairs_s": n / whole,
+            "batches": len(got), "period_ms": med(period),
+            "wait_ms": med([wait[i + 1] for i in steady]),
+            "dispatch_ms": med([disp[i] for i in steady]),
+            "rest_ms": med([got[i + 1] - got[i] - disp[i] - wait[i + 1] for i in steady]),
+            "score_ms": med(scoring.seconds[EVAL_FILL:]) if scoring.seconds else 0.0}
+
+
+def _split_txt(r: dict) -> str:
+    return (f"{r['pairs_s']:.2f} pairs/s steady ({r['whole_pairs_s']:.2f} whole, "
+            f"{r['batches']} batches), a batch {r['period_ms']:.1f} ms = loader wait "
+            f"{r['wait_ms']:.1f} + dispatch {r['dispatch_ms']:.1f} + rest {r['rest_ms']:.1f}"
+            + (f", scoring {r['score_ms']:.1f} in the drain thread" if r["score_ms"] else ""))
 
 
 def _scored(torch, sw, batch, pred, device):
@@ -1668,7 +1750,7 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
         check(abs(md[k] - mc[k]) <= tol, f"5 cm off: {k} {md[k]} on the card, {mc[k]} on the CPU")
     check(md["MSSD"] < 1.0 and md["VSD"] < 1.0, f"5 cm off still scores {md}")
 
-    # timings: one window render of a batch's poses, warm sweeps
+    # timings: one window render of a batch's poses, steady sweeps
     c = ev_dev._tensors(batch.cls_id[0])
     R = torch.as_tensor(gt[:, :3, :3], device=DEVICE)
     t = torch.as_tensor(gt[:, :3, 3] * 1000, device=DEVICE)
@@ -1680,8 +1762,15 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
     ev_w = BatchedEvaluator("Ours", vsd_window=EVAL_WINDOW, device=DEVICE)
     ev_w.add_object_info(sw.ds.reader.object_info())
     ev_w.init_test()
-    with_s = _sweep_s(torch, sw, ev_w)
-    without_s = _sweep_s(torch, sw, _NullEvaluator())
+    with torch.inference_mode():
+        held = list(PrefetchLoader(_Repeated(sw.ds, EVAL_REPEATS), EVAL_BATCH,
+                                   sort_by_class=True))
+    # the loader's sweeps bracketed by two from the collated batches
+    preloaded = [_split_sweep(torch, sw, _NullEvaluator(), held)]
+    scored = _split_sweep(torch, sw, ev_w)
+    unscored = _split_sweep(torch, sw, _NullEvaluator())
+    preloaded.append(_split_sweep(torch, sw, _NullEvaluator(), held))
+    del held
 
     # debug_valid: ground-truth correspondences, one batch, K2 not launched.
     # RANSAC (the fake PointDSC weights classify inliers at random) and ICP
@@ -1718,8 +1807,11 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
                      f"at full width (int8, PointDSC, ICP, VSD window {EVAL_WINDOW}) in "
                      f"{cold_s:.1f} s cold: {n_pairs} CSV lines, JSON keys as BatchedEvaluator's, "
                      f"AR {means['AR']:.3f}, launches K1 {counts['k1']} K2 {counts['k2']}; "
-                     f"warm sweep {n_pairs / with_s:.2f} pairs/s with scoring, "
-                     f"{n_pairs / without_s:.2f} without; window render "
+                     f"sweeps of the split {EVAL_REPEATS} times over: with scoring "
+                     f"{_split_txt(scored)}; without scoring {_split_txt(unscored)}; "
+                     f"batches collated beforehand, no scoring, before "
+                     f"{_split_txt(preloaded[0])} and after {_split_txt(preloaded[1])}; "
+                     f"window render "
                      f"{render_ms:.3f} ms a pose, scoring {score_s * 1e3:.1f} ms a batch of "
                      f"{len(gt)}; ground-truth pose: R {m['R error']:.3f} deg, T "
                      f"{m['T error']:.2e} cm, ADD(S)/MSSD/MSPD/VSD recall 1; 5 cm off: MSSD "
@@ -1729,7 +1821,7 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
                      f"{rel_err[1]:.4f} m of the ground truth; "
                      f"nn_correspondences_anchors K2 {acounts['k2']}, rows equal the CPU's "
                      f"{same:.4f}"),
-            "pairs_s": n_pairs / with_s, "pairs_s_unscored": n_pairs / without_s,
+            "sweeps": {"scored": scored, "unscored": unscored, "preloaded": preloaded},
             "render_ms": render_ms, "score_ms": score_s * 1e3}
 
 

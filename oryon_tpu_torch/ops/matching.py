@@ -80,18 +80,17 @@ def nn_correspondences_anchors(
     feats2: torch.Tensor,      # [B, H, W, D]
     anchors: torch.Tensor,     # [B, N, 2] int (y, x) source coordinates
     mask2: torch.Tensor,       # [B, H, W] 0/1
-    precision: str = "bf16",
 ) -> torch.Tensor:
     """Nearest neighbour in map 2 (pixels outside mask 2 excluded) of each
     fixed source pixel of map 1: one launch of the masked-argmin kernel for
     the batch.  Returns [B, N, 4] (y1, x1, y2, x2) int64.  Counterpart of
     the JAX package's ``nn_correspondences_anchors`` (one pair there), whose
-    streaming argmin rounds to bf16 by default as ``precision`` does here."""
+    streaming argmin rounds its inputs to bf16, as the bf16 mode does here."""
     B, H, W, D = feats1.shape
     a = anchors.long()
     idx = (a[..., 0] * W + a[..., 1])[..., None].expand(B, a.shape[1], D)
     src = unit(torch.gather(feats1.reshape(B, H * W, D).float(), 1, idx))
     tgt = unit(feats2.reshape(B, H * W, D).float())
     bad = mask2.reshape(B, H * W) == 0
-    _, arg = masked_argmin(src.contiguous(), tgt.contiguous(), bad.contiguous(), precision)
+    _, arg = masked_argmin(src.contiguous(), tgt.contiguous(), bad.contiguous(), "bf16")
     return torch.cat([a, flat_to_yx(arg.long(), W)], dim=-1)

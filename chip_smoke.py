@@ -70,7 +70,25 @@ Phases, each printing one line with its result and its time:
                a batch timed;
                debug_valid (ground-truth correspondences, no K2) and
                nn_correspondences_anchors (one K2 launch) on one batch
- 14. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
+ 14. train     run_train_torch.main at full width (bf16 towers, K1 fused,
+               B=32, device augmentation, the prompt cache) over a 64-pair
+               ShapeNet6D-format tree it writes (480 x 640, synthetic_pair):
+               2 epochs of 2 steps with validation on the eval phase's tree
+               (K1 24 a step and a validation batch, K2 1 a validation
+               batch), then a resume for a third epoch that continues step,
+               optimizer state and LR; steps from the loader split into
+               loader wait, augment, forward + loss, backward and optimizer;
+               pairs/s trained; peak memory
+ 15. overfit   10 AdamW steps at full width on one synthetic batch of 8 with
+               the same draws each step: the loss falls
+ 16. train_towers  2 steps at full width, B=32, with the vision and Swin
+               towers trained: K1 24 + 24 (recomputed) a step, gradients in
+               both towers and none in the text tower, peak memory; the
+               step's fusion/decoder gradient against the einsum tower's
+               (cosine > 0.999, loss within 1e-2); attn_impl=flash raises in
+               backward; K1's backward (autograd through the plain version)
+               at [64, 577, 3072] timed against SDPA's backward
+ 17. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -1563,6 +1581,66 @@ def write_real275_tree(root, rs, device, split=EVAL_SPLIT, views=EVAL_VIEWS,
     return len(lines)
 
 
+TRAIN_SPLIT = "train_split"
+TRAIN_CLASSES = ((3, "abc123", "chair,seat,stool", "chair_model"),
+                 (7, "def456", "mug,cup,coffee mug", "mug_model"))
+
+
+def write_shapenet6d_tree(root, rs, pairs, hw=EVAL_HW, split=TRAIN_SPLIT):
+    """Write the ShapeNet6D layout ``data.datasets.Shapenet6DReader`` reads:
+    ``pairs`` pairs of two images each, made by ``data.synthetic.
+    synthetic_pair`` at ``hw`` (a textured depth blob, moved by a random
+    pose), the classes of ``TRAIN_CLASSES`` in turn, with the relative poses
+    and correspondences in the fixed split.  Returns the number of pairs."""
+    import pickle
+
+    from PIL import Image
+
+    from oryon_tpu_torch.data.synthetic import DEFAULT_K, synthetic_pair
+    from oryon_tpu_torch.data.templates import CLIP_TEMPLATES
+    for sub in ("rgb", "mask", "depth"):
+        os.makedirs(os.path.join(root, "raw_data", sub))
+    scene_gt, lines, annots = {}, [], {}
+    for p in range(pairs):
+        cls_id, obj, _, _ = TRAIN_CLASSES[p % len(TRAIN_CLASSES)]
+        it = synthetic_pair(rs, hw, hw)
+        ia, iq = 2 * p, 2 * p + 1
+        for img, side in ((ia, "a"), (iq, "q")):
+            stem = f"{img:06d}"
+            Image.fromarray((it[f"rgb_{side}"] * 255).astype(np.uint8)).save(
+                os.path.join(root, "raw_data", "rgb", stem + ".jpg"))
+            Image.fromarray(it[f"mask_{side}"].astype(np.uint8)).save(
+                os.path.join(root, "raw_data", "mask", stem + ".png"))
+            Image.fromarray(np.clip(it[f"depth_{side}"], 0, 65535).astype(np.uint16)).save(
+                os.path.join(root, "raw_data", "depth", stem + ".png"))
+            scene_gt[img] = {"K": DEFAULT_K.reshape(3, 3).astype(np.float64),
+                             "obj_info_lst": [{}, {"cls_id": cls_id,
+                                                   "RT": it[f"pose_{side}"][:3]}]}
+        rel = it["rel_pose"].astype(np.float64)
+        rel[:3, 3] *= 1000.0                     # the annotations hold mm
+        name = f"obj{cls_id}"
+        annots[f"0_{ia}_0_{iq}_{cls_id}_{name}"] = {
+            "gt": rel, "corrs": it["corrs"][it["corr_valid"]]}
+        lines.append(f"train, 0 {ia}, 0 {iq}, {cls_id} {name}\n")
+    with open(os.path.join(root, "scene_gt.pkl"), "wb") as f:
+        pickle.dump(scene_gt, f)
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("fullId,x,category,wnlemmas,name,z\n")
+        f.writelines(f'wss.{oid},0,{words.split(",")[0]},"{words}",{model},0\n'
+                     for _, oid, words, model in TRAIN_CLASSES)
+    with open(os.path.join(root, "objnm2clsid.json"), "w") as f:
+        json.dump({f"{oid}_0": cls_id for cls_id, oid, _, _ in TRAIN_CLASSES}, f)
+    with open(os.path.join(root, "templates.json"), "w") as f:
+        json.dump(list(CLIP_TEMPLATES), f)
+    sp = os.path.join(root, "fixed_split", split)
+    os.makedirs(sp)
+    with open(os.path.join(sp, "instance_list.txt"), "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(sp, "annots.pkl"), "wb") as f:
+        pickle.dump(annots, f)
+    return len(lines)
+
+
 class _NullEvaluator:
     """Registers nothing: the sweep's time without scoring."""
     metrics: dict = {}
@@ -1825,6 +1903,277 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
             "render_ms": render_ms, "score_ms": score_s * 1e3}
 
 
+TRAIN_PAIRS, TRAIN_BATCH = 64, 32   # two steps an epoch at the trainer's default B
+OVERFIT_BATCH, OVERFIT_STEPS = 8, 10
+GRAD_COS_BOUND, GRAD_LOSS_TOL = 0.999, 1e-2   # fused vs einsum tower (bf16 logits there)
+
+
+def _train_argv(tmp, pd_dir, *extra):
+    return [f"dataset.root={tmp}", "dataset.train.name=shapenet6d_smoke",
+            f"dataset.train.split={TRAIN_SPLIT}", "dataset.test.name=nocs_smoke",
+            f"dataset.test.split={EVAL_SPLIT}", "model.size=full", "model.attn_impl=fused",
+            "model.train_quant=none", f"dataset.batch_size={TRAIN_BATCH}",
+            "training.freq_save=1", "training.freq_valid=1", f"pretrained.pointdsc={pd_dir}",
+            f"exp_root={os.path.join(tmp, 'exp')}", "exp_name=train_smoke", "use_seed=true",
+            "seed=7", *[f"pretrained.{k}={tmp}/no_{k}" for k in ("clip", "swin", "catseg",
+                                                                   "vocabulary")],
+            *extra, "--device", DEVICE]
+
+
+def _epoch_losses(text: str) -> dict:
+    """{epoch: {name: value}} of the trainer's 'epoch N: k=v ...' lines."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("epoch ") and ": " in line:
+            head, body = line.split(": ", 1)
+            out[int(head.split()[1])] = {k: float(v) for k, v in
+                                         (kv.split("=") for kv in body.split())}
+    return out
+
+
+def _split_steps(torch, tr, steps: int):
+    """``steps`` train steps from the loader (whole epochs), each split by
+    CUDA events into augment, forward + loss, backward and optimizer, and by
+    the host clock into the wait for the loader and the step.  Returns (the
+    medians in ms, the first step's launch counts, pairs a second over all
+    the steps)."""
+    from oryon_tpu_torch.data.pair_batch import train_fields
+    from oryon_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    rows, counts = [], None
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    while len(rows) < steps:
+        it, before = iter(tr.loader), len(rows)
+        while len(rows) < steps:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            t1 = time.perf_counter()
+            batch = train_fields(batch._replace(text_emb=tr.text_cache(batch.prompt_ids)))
+            events: list = []
+            reset_launch_counts()
+            tr.step_fn(tr.state, batch, tr.generator, stage_events=events)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts = counts or launch_counts()
+            ms = {n1: e0.elapsed_time(e1) for (_, e0), (n1, e1) in zip(events, events[1:])}
+            ms.update(wait=(t1 - t0) * 1e3, step=(t2 - t1) * 1e3)
+            rows.append(ms)
+        check(len(rows) > before, "the training loader yields no batch")
+    pairs_s = steps * TRAIN_BATCH / (time.perf_counter() - start)
+    med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    return med, counts, pairs_s
+
+
+@phase("train")
+def phase_train(torch, tmp, pd_dir, layers, smi_line):
+    import run_train_torch
+    from oryon_tpu_torch.train import cosine_lr
+    name = "shapenet6d_smoke"
+    t0 = time.perf_counter()
+    n_pairs = write_shapenet6d_tree(os.path.join(tmp, name), np.random.RandomState(31),
+                                    TRAIN_PAIRS)
+    tree_s = time.perf_counter() - t0
+    steps = n_pairs // TRAIN_BATCH
+    valid_batches = -(-len(EVAL_PAIRS) * len(EVAL_CLASSES) // TRAIN_BATCH)
+    t0 = time.perf_counter()
+    (tr, counts), text = _printed(lambda: _counted(torch, lambda: run_train_torch.main(
+        _train_argv(tmp, pd_dir, "training.n_epochs=2"))))
+    first_s = time.perf_counter() - t0
+    for want in (f"TRAINING on {name}, split {TRAIN_SPLIT}. Samples: {n_pairs}",
+                 "augmentations: on-device", "epoch 1: ", "valid epoch 1: ", "saved "):
+        check(want in text, f"run_train_torch did not print {want!r}")
+    losses = _epoch_losses(text)
+    check(sorted(losses) == [0, 1] and all(np.isfinite(v) for e in losses.values()
+                                           for v in e.values()), f"epoch lines {losses}")
+    want_k1 = layers * (2 * steps + 2 * valid_batches)
+    check(tr.state.step == 2 * steps, f"{tr.state.step} steps after 2 epochs")
+    check(counts["k1"] == want_k1 and counts["k2"] == 2 * valid_batches
+          and sum(counts.values()) == want_k1 + 2 * valid_batches,
+          f"2 epochs of {steps} steps + 2 validations: launches {counts}, expected K1 "
+          f"{want_k1} and K2 {2 * valid_batches}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # resume for a third epoch: the step count, the optimizer and the LR go on
+    t0 = time.perf_counter()
+    (tr, rcounts), text = _printed(lambda: _counted(torch, lambda: run_train_torch.main(
+        _train_argv(tmp, pd_dir, "training.n_epochs=3", "resume_ckpt=last"))))
+    resume_s = time.perf_counter() - t0
+    total = 3 * steps
+    check("Resumed from epoch 1" in text and sorted(_epoch_losses(text)) == [2],
+          "the resumed run did not continue at epoch 2")
+    sched = cosine_lr(1e-3, total, 0.1)
+    counts_opt = {st["count"] for st in tr.state.optimizer.state.values()}
+    check(tr.state.step == total and counts_opt == {total}
+          and tr.state.optimizer.param_groups[0]["lr"] == sched(total - 1),
+          f"resumed: step {tr.state.step}, optimizer counts {counts_opt}, LR "
+          f"{tr.state.optimizer.param_groups[0]['lr']} (want {total}, {sched(total - 1)})")
+    check(rcounts["k1"] == layers * (steps + valid_batches), f"resumed launches {rcounts}")
+
+    # steps from the loader, timed in parts; the first one alone launches K1
+    # 24 times and nothing else
+    torch.cuda.reset_peak_memory_stats()
+    split, scounts, epoch_pairs_s = _split_steps(torch, tr, 2 * steps)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(scounts["k1"] == layers and sum(scounts.values()) == layers,
+          f"one train step: launches {scounts}, expected K1 {layers} only")
+    last = _epoch_losses(text)[2]
+    return {"line": (f"{smi_line}: {n_pairs}-pair ShapeNet6D-format tree (480x640) written "
+                     f"in {tree_s:.1f} s; run_train_torch.main at full width (bf16, fused, "
+                     f"B={TRAIN_BATCH}, device augs, text cache, validation on the "
+                     f"{len(EVAL_PAIRS) * len(EVAL_CLASSES)}-pair REAL275 tree) 2 epochs in "
+                     f"{first_s:.1f} s: {2 * steps} steps, launches K1 {counts['k1']} K2 "
+                     f"{counts['k2']}; resumed for epoch 3 in {resume_s:.1f} s: step "
+                     f"{total}, LR {sched(total - 1):.3e} as the schedule, loss "
+                     f"{last['train_loss/total']:.4f}; one step K1 {scounts['k1']}; step "
+                     f"split (median of {2 * steps}, ms): loader wait {split['wait']:.1f}, augment "
+                     f"{split['augment']:.1f}, forward + loss {split['forward']:.1f}, "
+                     f"backward {split['backward']:.1f}, optimizer {split['optimizer']:.1f}, "
+                     f"host step {split['step']:.1f}; {epoch_pairs_s:.1f} pairs/s trained "
+                     f"over {2 * steps} steps from the loader; peak {peak_gib:.2f} GiB "
+                     f"allocated"),
+            "split": split, "epoch_pairs_s": epoch_pairs_s, "peak_gib": peak_gib}
+
+
+def _full_train_model(torch, seed: int, train_towers: bool = False):
+    from oryon_tpu_torch.models.layers import random_init_
+    from oryon_tpu_torch.models.oryon import full_oryon
+    model = random_init_(full_oryon(train_towers=train_towers),
+                         torch.Generator().manual_seed(seed))
+    return model.to(DEVICE)
+
+
+def _synthetic_train_batch(torch, model, B: int, seed: int):
+    """A synthetic full-width batch with its prompt embeddings cached."""
+    from oryon_tpu_torch.data.synthetic import synthetic_pair_batch
+    from oryon_tpu_torch.pipeline import make_train_text_cache
+    batch = synthetic_pair_batch(seed=seed, batch=B, n_prompts=model.fusion_cfg.num_prompts,
+                                 device=DEVICE)
+    return batch._replace(text_emb=make_train_text_cache(model)(batch.prompt_ids),
+                          prompt_ids=None)
+
+
+@phase("overfit")
+def phase_overfit(torch):
+    """Ten steps on one fixed batch with the same draws each step: the
+    loss must fall."""
+    from oryon_tpu_torch.train import create_train_state, make_train_step
+    model = _full_train_model(torch, 11)
+    batch = _synthetic_train_batch(torch, model, OVERFIT_BATCH, 3)
+    state, step = create_train_state(model, total_steps=OVERFIT_STEPS), make_train_step()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OVERFIT_STEPS):
+        _, m = step(state, batch, torch.Generator(device=DEVICE).manual_seed(0))
+        losses.append(m["loss/total"])
+    losses = [float(v) for v in losses]
+    step_ms = (time.perf_counter() - t0) / OVERFIT_STEPS * 1e3
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"losses {losses}")
+    return {"line": (f"full width, B={OVERFIT_BATCH}, {OVERFIT_STEPS} AdamW steps on one "
+                     f"batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}, mask "
+                     f"{float(m['loss/mask']):.4f}, IoU {float(m['metric/iou_a']):.3f}, "
+                     f"{step_ms:.1f} ms a step")}
+
+
+def _fd_grad(model):
+    """The fusion and decoder gradient as one f32 vector."""
+    import torch
+    return torch.cat([p.grad.float().flatten() for n, p in model.named_parameters()
+                      if n.split(".")[0] in ("fusion", "decoder")])
+
+
+@phase("train_towers")
+def phase_train_towers(torch, iters, layers):
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+    from oryon_tpu_torch.train import create_train_state, loss_and_metrics, make_train_step
+    model = _full_train_model(torch, 13, train_towers=True)
+    batch = _synthetic_train_batch(torch, model, TRAIN_BATCH, 5)
+    state, step = create_train_state(model), make_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    step_counts, step_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        (_, m), c = _counted(torch, lambda: step(state, batch, torch.Generator(
+            device=DEVICE).manual_seed(1)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_counts.append(c)
+        check(np.isfinite(float(m["loss/total"])), "train_towers: loss not finite")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for c in step_counts:
+        check(c["k1"] == 2 * layers and sum(c.values()) == 2 * layers,
+              f"train_towers step launches {c}, expected K1 {layers} + {layers} (recomputed)")
+    grads = {t: [p.grad for n, p in model.named_parameters() if n.startswith(t + ".")]
+             for t in ("vlm_visual", "guidance", "vlm_text")}
+    check(all(g is None for g in grads["vlm_text"]), "a gradient reached the text tower")
+    for t in ("vlm_visual", "guidance"):
+        check(any(g is not None and bool(g.abs().max() > 0) for g in grads[t]),
+              f"no gradient reached {t}")
+
+    # the same step's loss and fusion/decoder gradient with the plain tower
+    def loss_grad():
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_and_metrics(model, state.loss_cfg, batch,
+                                   torch.Generator(device=DEVICE).manual_seed(2))
+        loss.backward()
+        return float(loss), _fd_grad(model)
+    loss_k, g_k = loss_grad()
+    _set_attn(model, "einsum", "einsum")
+    loss_p, g_p = loss_grad()
+    cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=0).item()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(cos > GRAD_COS_BOUND and rel < GRAD_LOSS_TOL,
+          f"fused vs einsum tower: gradient cosine {cos:.6f}, loss {loss_k} vs {loss_p}")
+    _set_attn(model, "flash", "einsum")
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_and_metrics(model, state.loss_cfg, batch, torch.Generator(device=DEVICE))
+    try:
+        loss.backward()
+        raise PhaseError("attn_impl=flash under train_towers did not raise")
+    except RuntimeError as e:
+        check("cannot be differentiated" in str(e), f"flash raised {e}")
+    del loss
+    del model, state, batch, g_k, g_p
+    torch.cuda.empty_cache()
+
+    # K1's backward (autograd through the plain version) at the training shape
+    B, L, C3 = 2 * TRAIN_BATCH, K1_SHAPE[1], K1_SHAPE[2]
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
+    kmask = torch.zeros(L, device=DEVICE)
+    dout = torch.randn((B, L, C3 // 3), generator=g, device=DEVICE).to(torch.bfloat16)
+    scale = (C3 // 3 // K1_HEADS) ** -0.5
+    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
+    ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
+    lib = sdpa_packed(torch, qkv, None, K1_HEADS)
+    dq = torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
+    dq_ref = torch.autograd.grad(ref, qkv, dout, retain_graph=True)[0]
+    bwd_err = compare(torch, dq, dq_ref, "K1 backward vs autograd of the plain version")
+    torch.cuda.reset_peak_memory_stats()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, dout, retain_graph=True), iters)
+    bwd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters)
+    hd = C3 // 3 // K1_HEADS
+    # five L x L x hd products: S = Q K^T again, dV, dP, dQ, dK
+    b = bound(nbytes(qkv, kmask, dout, dq), {"bf16": 10 * B * K1_HEADS * L * L * hd})
+    res = {"k1_bwd": {"ms": bwd_ms, "library_ms": lib_ms, "err": bwd_err, **b},
+           "peak_gib": peak_gib, "step_ms": step_ms}
+    res["line"] = (f"full width, B={TRAIN_BATCH}, Swin einsum, K1 fused: 2 steps "
+                   f"({', '.join(f'{v:.0f}' for v in step_ms)} ms host) with launches "
+                   f"K1 {step_counts[0]['k1']} a step ({layers} + {layers} recomputed), "
+                   f"gradients in vlm_visual and guidance, none in vlm_text; peak "
+                   f"{peak_gib:.2f} GiB allocated; fusion/decoder gradient vs the einsum "
+                   f"tower: cosine {cos:.6f} (bound {GRAD_COS_BOUND}), loss {loss_k:.5f} vs "
+                   f"{loss_p:.5f} (rel {rel:.2e}, tol {GRAD_LOSS_TOL}); attn_impl=flash "
+                   f"raises; K1 backward at qkv [{B}, {L}, {C3}] bf16 (autograd through "
+                   f"the plain version): {bwd_ms:.3f} ms, max abs err vs autograd of "
+                   f"reference_mha {bwd_err:.2e}, SDPA backward {lib_ms:.3f} ms, bound "
+                   f"{b['bound_ms']:.4f} ms ({b['bound_by']}), peak {bwd_peak:.2f} GiB")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -1863,6 +2212,12 @@ def main(argv=None) -> int:
         phase_cli(torch, tmp, pd_dir, layers)
         torch.cuda.empty_cache()
         phase_eval(torch, tmp, pd_dir, layers, dev["smi"])
+        torch.cuda.empty_cache()
+        phase_train(torch, tmp, pd_dir, layers, dev["smi"])
+        torch.cuda.empty_cache()
+        phase_overfit(torch)
+        torch.cuda.empty_cache()
+        phase_train_towers(torch, TIMED_LAUNCHES, layers)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_bench(torch, dev["smi"], layers)

@@ -145,6 +145,24 @@ def restore_checkpoint(cfg: Config, model: torch.nn.Module, which: str = "last",
     return epoch, int(entry["step"])
 
 
+def save_train_state(cfg: Config, epoch: int, state) -> str:
+    """``save_checkpoint`` of a ``train.TrainState``: model, optimizer and
+    the optimizer steps taken, which fix the LR schedule's position."""
+    return save_checkpoint(cfg, epoch, state.model, state.optimizer, state.step)
+
+
+def restore_train_state(cfg: Config, state, which: str = "last") -> int:
+    """Resume a ``train.TrainState`` in place: model, optimizer state and
+    step, and so the LR schedule where it stood.  Returns the epoch; -1 and
+    nothing restored when the experiment has no checkpoint."""
+    epoch, step = restore_checkpoint(cfg, state.model, which, state.optimizer)
+    if epoch >= 0:
+        state.step = step
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.schedule(step)
+    return epoch
+
+
 def restore_params_only(cfg: Config, model: torch.nn.Module, spec: str) -> str:
     """Warm-start ``model`` from another experiment's checkpoint; optimizer
     state and step stay fresh (``cfg.init_params_from``).

@@ -551,14 +551,17 @@ class PairDataset:
             )
 
         prompt_ids = np.stack([self._tokenize_cached(p["prompts"]) for p in pairs])
+        valid = np.asarray([p["valid"] for p in pairs], np.float32)
         return PairBatch(
             anchor=view("item_a", "orig_a"),
             query=view("item_q", "orig_q"),
-            prompt_ids=t(prompt_ids),
+            # training: the prompt cache keys on the host ids, and the loss
+            # reads the pair validity on the device; the test loop reads
+            # the validity on the host every batch
+            prompt_ids=prompt_ids if train else t(prompt_ids),
             corrs=t(np.stack([p["corrs"] for p in pairs])),
             corr_valid=t(np.stack([p["corr_valid"] for p in pairs])),
-            # host-side: the test loop reads it every batch
-            valid=np.asarray([p["valid"] for p in pairs], np.float32),
+            valid=t(valid) if train else valid,
             rel_pose=None if train else t(np.stack(
                 [p["rel_pose"] for p in pairs]).astype(np.float32)),
             cls_id=np.asarray([p["cls_id"] for p in pairs]),

@@ -35,7 +35,33 @@ class PairBatch(NamedTuple):
     instance_id: np.ndarray    # [B] host-side instance tags
     id_a: Optional[np.ndarray] = None   # [B] host-side anchor ids "scene img obj"
     id_q: Optional[np.ndarray] = None   # [B] host-side query ids
+    # [B, P, D] precomputed prompt embeddings (the frozen text tower's
+    # output); when set, the model skips the text tower
+    text_emb: Optional[torch.Tensor] = None
 
     @property
     def batch_size(self) -> int:
         return self.corrs.shape[0]
+
+
+def device_fields(batch: PairBatch) -> PairBatch:
+    """The device subset: drops the host-side id arrays."""
+    return batch._replace(cls_id=None, instance_id=None, id_a=None, id_q=None)
+
+
+def _train_view(v: PairView) -> PairView:
+    return v._replace(depth=None, orig_depth=None, eval_depth=None,
+                      camera=None, pose=None, size=None)
+
+
+def train_fields(batch: PairBatch) -> PairBatch:
+    """What a training step reads: rgb, mask, corrs and their validity, the
+    pair validity and the prompts (``prompt_ids`` dropped when ``text_emb``
+    is set, since the model then ignores them).  Depth, camera and poses are
+    concerns of pose evaluation."""
+    b = device_fields(batch)._replace(
+        anchor=_train_view(batch.anchor), query=_train_view(batch.query),
+        rel_pose=None)
+    if b.text_emb is not None:
+        b = b._replace(prompt_ids=None)
+    return b

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from oryon_tpu_torch.models.layers import Conv, LayerNorm, dense_cls
 from oryon_tpu_torch.ops.cuda.flash import flash_mha, flash_mha_padded
@@ -160,10 +161,12 @@ class ClipVisionTower(nn.Module):
     """Dense visual tokens: [B, 336, 336, 3] -> [B, 24, 24, 1024] (f32)."""
 
     def __init__(self, cfg: ClipVisionConfig = ClipVisionConfig(),
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
         c = self.cfg = cfg
-        self.dtype = dtype
+        # remat: under autograd each block is recomputed in backward
+        # instead of keeping its activations (non-reentrant checkpoint)
+        self.dtype, self.remat = dtype, remat
         self.conv1 = Conv(3, c.width, c.patch_size, stride=c.patch_size,
                           bias=False, dtype=dtype)
         self.class_embedding = nn.Parameter(torch.empty(c.width))
@@ -191,8 +194,10 @@ class ClipVisionTower(nn.Module):
             Lp = -(-L // 128) * 128
             x = torch.nn.functional.pad(x, (0, 0, 0, Lp - L))
             seg = (torch.arange(Lp, device=x.device) < L).to(torch.int32)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x, None, seg)
+            x = (checkpoint(block, x, None, seg, use_reentrant=False) if remat
+                 else block(x, None, seg))
         toks = self.ln_post(x[:, 1:L])
         return toks.reshape(B, c.grid, c.grid, c.width)
 

@@ -5,6 +5,13 @@ the towers as one doubled batch.  Inputs and outputs keep the JAX package's
 NHWC layout; the compute dtype is bf16 for the full model, with LayerNorm
 and GroupNorm in f32 and the ``clip_conv`` and mask heads in f32, as there.
 The model is frozen at serving time: call it under ``torch.inference_mode``.
+
+Training: the towers are frozen unless ``train_towers`` is set; frozen,
+they run under ``torch.no_grad()``, the counterpart of the JAX package's
+``stop_gradient``, and keep no activations.  With ``train_towers`` the
+vision and Swin towers take gradients and recompute each block in backward
+(the JAX package's ``remat=train_towers``).  The prompt embeddings never
+take a gradient: the text tower is always frozen (the prompt caches).
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ class OryonModel(nn.Module):
                  vision_cfg: ClipVisionConfig = ClipVisionConfig(),
                  text_cfg: ClipTextConfig = ClipTextConfig(),
                  swin_cfg: SwinConfig = SwinConfig(),
-                 swin_image_size: int = 384, dtype=torch.bfloat16):
+                 swin_image_size: int = 384, dtype=torch.bfloat16,
+                 train_towers: bool = False):
         super().__init__()
         if decoder_cfg is None:
             decoder_cfg = DecoderConfig(guidance_input_dims=(
@@ -53,14 +61,20 @@ class OryonModel(nn.Module):
         self.fusion_cfg, self.decoder_cfg = fusion_cfg, decoder_cfg
         self.vision_cfg, self.text_cfg, self.swin_cfg = vision_cfg, text_cfg, swin_cfg
         self.swin_image_size, self.dtype = swin_image_size, dtype
-        self.vlm_visual = ClipVisionTower(vision_cfg, dtype)
+        self.train_towers = train_towers
+        self.vlm_visual = ClipVisionTower(vision_cfg, dtype, remat=train_towers)
         self.vlm_text = ClipTextTower(text_cfg, dtype)
-        self.guidance = SwinGuidance(swin_cfg, dtype)
+        self.guidance = SwinGuidance(swin_cfg, dtype, remat=train_towers)
         self.fusion = ImageTextFusion(fusion_cfg, dtype)
         self.decoder = StandardDecoder(decoder_cfg, dtype)
 
     def encode_towers(self, rgb2: torch.Tensor):
-        """Frozen towers over a doubled batch [2B, H, W, 3] in [0, 1]."""
+        """The towers over a doubled batch [2B, H, W, 3] in [0, 1]; without
+        ``train_towers`` no gradient reaches them or flows out of them."""
+        with torch.set_grad_enabled(self.train_towers and torch.is_grad_enabled()):
+            return self._towers(rgb2)
+
+    def _towers(self, rgb2: torch.Tensor):
         s = self.vision_cfg.image_size
         clip_in = _normalize(resize2d(rgb2, (s, s), "cubic", align_corners=False),
                              CLIP_MEAN, CLIP_STD)
@@ -71,9 +85,10 @@ class OryonModel(nn.Module):
         return visual, self.guidance(swin_in)
 
     def encode_prompts(self, prompt_ids: torch.Tensor) -> torch.Tensor:
-        """[B, P, L] token ids -> [B, P, embed_dim]."""
+        """[B, P, L] token ids -> [B, P, embed_dim], without gradient."""
         B, P, L = prompt_ids.shape
-        return self.vlm_text(prompt_ids.reshape(B * P, L)).reshape(B, P, -1)
+        with torch.no_grad():
+            return self.vlm_text(prompt_ids.reshape(B * P, L)).reshape(B, P, -1)
 
     def forward(self, rgb_a: torch.Tensor, rgb_q: torch.Tensor,
                 prompt_ids: Optional[torch.Tensor] = None,
@@ -93,7 +108,7 @@ class OryonModel(nn.Module):
 
 
 def full_oryon(dtype=torch.bfloat16, quant: str = "none",
-               attn_impl: str = "fused") -> OryonModel:
+               attn_impl: str = "fused", train_towers: bool = False) -> OryonModel:
     """Production configuration: ViT-L/14@336, Swin-B@384, 192² x 32-ch.
 
     ``quant="int8"`` runs the CLIP vision projections in int8; the Swin
@@ -101,10 +116,10 @@ def full_oryon(dtype=torch.bfloat16, quant: str = "none",
     for a caller that builds its own ``OryonModel``).  ``attn_impl`` selects
     the vision tower's attention kernel (``cfg.model.attn_impl``)."""
     return OryonModel(vision_cfg=ClipVisionConfig(quant=quant, attn_impl=attn_impl),
-                      dtype=dtype)
+                      dtype=dtype, train_towers=train_towers)
 
 
-def small_oryon(dtype=torch.float32) -> OryonModel:
+def small_oryon(dtype=torch.float32, train_towers: bool = False) -> OryonModel:
     """Smoke-test configuration: real tokenizer vocab/context, small towers."""
     return OryonModel(
         vision_cfg=ClipVisionConfig(image_size=112, patch_size=14, width=64,
@@ -119,10 +134,10 @@ def small_oryon(dtype=torch.float32) -> OryonModel:
                                 appearance_proj_dim=128, num_layers=2,
                                 nheads=4, window=4, pooling=2,
                                 num_prompts=8, clip_dim=64, clip_proj_dim=64),
-        dtype=dtype)
+        dtype=dtype, train_towers=train_towers)
 
 
-def tiny_oryon(dtype=torch.float32) -> OryonModel:
+def tiny_oryon(dtype=torch.float32, train_towers: bool = False) -> OryonModel:
     """Test configuration: same topology, about 1000x fewer FLOPs."""
     return OryonModel(
         vision_cfg=ClipVisionConfig(image_size=56, patch_size=14, width=64,
@@ -137,7 +152,7 @@ def tiny_oryon(dtype=torch.float32) -> OryonModel:
                                 appearance_proj_dim=128, num_layers=2,
                                 nheads=4, window=2, pooling=2,
                                 num_prompts=8, clip_dim=64, clip_proj_dim=48),
-        dtype=dtype)
+        dtype=dtype, train_towers=train_towers)
 
 
 MODEL_FACTORIES = {"full": full_oryon, "small": small_oryon, "tiny": tiny_oryon}
@@ -159,7 +174,7 @@ def resolve_attn_impl(size: str, attn_impl: str) -> str:
 
 
 def build_model(size: str = "full", dtype=None, quant: str = "none",
-                attn_impl: str = "fused") -> OryonModel:
+                attn_impl: str = "fused", train_towers: bool = False) -> OryonModel:
     """Model by size name; quant and attn_impl apply to the full model only."""
     factory = MODEL_FACTORIES[size]
     kwargs = {}
@@ -173,4 +188,6 @@ def build_model(size: str = "full", dtype=None, quant: str = "none",
         if size != "full":
             raise ValueError("model.attn_impl is only wired for size='full'")
         kwargs["attn_impl"] = attn_impl
+    if train_towers:
+        kwargs["train_towers"] = True
     return factory(**kwargs)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from oryon_tpu_torch.models.layers import Conv, LayerNorm, dense_cls
 from oryon_tpu_torch.ops.cuda.swin_attn import (band_window_attention,
@@ -244,10 +245,13 @@ class PatchMerging(nn.Module):
 class SwinGuidance(nn.Module):
     """384² RGB -> [g1 [24², 512], g2 [48², 256], g3 [96², 128]] (f32)."""
 
-    def __init__(self, cfg: SwinConfig = SwinConfig(), dtype=torch.bfloat16):
+    def __init__(self, cfg: SwinConfig = SwinConfig(), dtype=torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
         c = self.cfg = cfg
-        self.dtype = dtype
+        # remat: under autograd each block is recomputed in backward
+        # instead of keeping its activations (non-reentrant checkpoint)
+        self.dtype, self.remat = dtype, remat
         self.patch_embed = Conv(3, c.embed_dim, 4, stride=4, dtype=dtype)
         self.patch_norm = LayerNorm(c.embed_dim)
         for s, (depth, dim, heads) in enumerate(
@@ -268,8 +272,11 @@ class SwinGuidance(nn.Module):
             if (Hp, Wp) != (H, W):
                 real_hw = (H, W)
                 x = F.pad(x, (0, 0, 0, Wp - W, 0, Hp - H))
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(c.depths[s - 1]):
-            x = getattr(self, f"stage{s}_block{i}")(x, real_hw)
+            block = getattr(self, f"stage{s}_block{i}")
+            x = (checkpoint(block, x, real_hw, use_reentrant=False) if remat
+                 else block(x, real_hw))
         if real_hw is not None:
             x = x[:, :real_hw[0], :real_hw[1]]
         return x

@@ -23,6 +23,8 @@ import threading
 import time
 from typing import Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "oryon_tpu_torch")
@@ -144,6 +146,33 @@ def library() -> ctypes.CDLL:
         build_info.update(path=so, seconds=seconds, ptxas=ptxas)
         _lib = lib
         return lib
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """Runs a kernel wrapper with autograd off; its backward raises."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *tensors):
+        ctx.name = name
+        return fn(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            f"{ctx.name} cannot be differentiated: the JAX package has no backward "
+            "for this kernel either; train the towers with model.attn_impl=fused "
+            "or einsum (and the Swin tower's attn_impl=einsum)")
+
+
+def forward_only(name: str, fn, *tensors):
+    """``fn(*tensors)``; when autograd would record it, through a node whose
+    backward raises.  For the kernels that the JAX package gives no backward
+    (no ``custom_vjp``; the stock flash kernel raises without backward block
+    sizes): a forward pass is allowed, a gradient is not, on either device,
+    and the plain version on the CPU is not differentiated in its stead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _ForwardOnly.apply(name, fn, *tensors)
+    return fn(*tensors)
 
 
 def check(err: int, name: str) -> None:

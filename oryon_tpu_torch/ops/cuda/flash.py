@@ -14,7 +14,11 @@ ring), entry ``oryon_flash_mha_wgmma_bf16``; D = 16, 32 and 128 the WMMA
 streaming kernel of ``csrc/attn_stream.cuh``, entry ``oryon_flash_mha_bf16``.
 
 Both functions launch the kernel for CUDA tensors and run the plain PyTorch
-version (``flash_mha_plain``) for CPU tensors.
+version (``flash_mha_plain``) for CPU tensors.  Neither takes a gradient, on
+either device (``_lib.forward_only``: the backward raises): the JAX package
+cannot differentiate its flash kernel (it passes no backward block sizes,
+and the stock kernel raises without them), so a tower trained through
+``attn_impl=flash`` raises here too.
 """
 from __future__ import annotations
 
@@ -72,6 +76,11 @@ def _flash(q, k, v, sm_scale: float, seg: Optional[torch.Tensor]) -> torch.Tenso
     B, H, L, D = q.shape
     if seg is not None and seg.shape != (B, L):
         raise ValueError(f"seg {tuple(seg.shape)} != ({B}, {L})")
+    return _lib.forward_only("flash_mha (K5, model.attn_impl=flash)",
+                             lambda q, k, v: _run(q, k, v, sm_scale, seg), q, k, v)
+
+
+def _run(q, k, v, sm_scale: float, seg: Optional[torch.Tensor]) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, sm_scale, seg)
     tensors = [q, k, v] + ([] if seg is None else [seg])
@@ -82,7 +91,7 @@ def _flash(q, k, v, sm_scale: float, seg: Optional[torch.Tensor]) -> torch.Tenso
         raise TypeError("kernel takes bf16 q, k, v and int32 seg")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, k, v and seg must be contiguous")
-    kernel_entry(D)   # raises on a head dim without a kernel
+    kernel_entry(q.shape[-1])   # raises on a head dim without a kernel
     return _launch(_lib.library(), q, k, v, sm_scale, seg,
                    torch.cuda.current_stream(q.device).cuda_stream)
 

@@ -28,6 +28,13 @@ serves which shape (``kernel_entry``):
   folded into q when exact, f32 exponentials and sums, division last).
   ``qk_int8`` takes bf16 only, as in the JAX package.
 
+Gradients: on a ``qkv`` that requires one (the towers under
+``train_towers``), the call goes through ``MhaLanesFunction``: forward is the
+kernel (the plain version on the CPU), backward recomputes the attention
+through ``reference_mha`` under autograd and returns d qkv and d kmask.
+That is the JAX package's ``_bwd`` (``jax.vjp`` of its ``_reference_mha``),
+straight-through for ``qk_int8``: the gradient ignores the quantisation.
+
 ``qk_int8=True`` forms the logits from int8 codes: per (image, head),
 ``q * scale`` and ``k`` are quantised by the absmax of their whole [L, hd]
 slab (``round(x * (127 / max))``, half to even, max floored at 1e-12), the
@@ -176,23 +183,10 @@ def _launch(lib, qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     return out
 
 
-def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
-                        scale: float, qk_int8: bool = False) -> torch.Tensor:
-    """softmax(q_h k_h^T * scale + kmask) v_h for every head h; with
-    ``qk_int8`` the logits come from int8 codes (see the module docstring).
-
-    qkv: [B, L, 3C] packed in_proj output; kmask: [L] additive f32 (0 for
-    real keys, -1e9 for padding).  Returns [B, L, C] in qkv's dtype.  On a
-    CUDA device qkv must be bf16 (or f32 without ``qk_int8``) and contiguous
-    with C / heads in {16, 32, 64, 128}; L needs no alignment.
-    """
-    if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % heads:
-        raise ValueError(f"qkv {tuple(qkv.shape)} is not [B, L, 3C] with "
-                         f"C divisible by heads={heads}")
-    B, L, C3 = qkv.shape
-    C = C3 // 3
-    if kmask.shape != (L,):
-        raise ValueError(f"kmask {tuple(kmask.shape)} != ({L},)")
+def _forward(qkv: torch.Tensor, kmask: torch.Tensor, heads: int, scale: float,
+             qk_int8: bool) -> torch.Tensor:
+    """The kernel on a CUDA device, the plain version on the CPU."""
+    C = qkv.shape[-1] // 3
     if qkv.device.type == "cpu":
         return reference_mha(qkv, kmask, heads, scale, qk_int8)
     if qkv.device.type != "cuda" or kmask.device != qkv.device:
@@ -206,3 +200,46 @@ def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     kernel_entry(C // heads, qk_int8, qkv.dtype)
     return _launch(_lib.library(), qkv, kmask, heads, scale, qk_int8,
                    torch.cuda.current_stream(qkv.device).cuda_stream)
+
+
+class MhaLanesFunction(torch.autograd.Function):
+    """K1 under autograd: forward ``_forward``, backward through the plain
+    ``reference_mha`` with bf16 (or f32) logits whatever ``qk_int8``."""
+
+    @staticmethod
+    def forward(ctx, qkv, kmask, heads: int, scale: float, qk_int8: bool):
+        ctx.save_for_backward(qkv, kmask)
+        ctx.heads, ctx.scale = heads, scale
+        return _forward(qkv, kmask, heads, scale, qk_int8)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        qkv, kmask = ctx.saved_tensors
+        want_mask = ctx.needs_input_grad[1]
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_(True)
+            m = kmask.detach().requires_grad_(want_mask)
+            out = reference_mha(x, m, ctx.heads, ctx.scale)
+            grads = torch.autograd.grad(out, (x, m) if want_mask else (x,), grad_out)
+        return grads[0], (grads[1] if want_mask else None), None, None, None
+
+
+def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
+                        scale: float, qk_int8: bool = False) -> torch.Tensor:
+    """softmax(q_h k_h^T * scale + kmask) v_h for every head h; with
+    ``qk_int8`` the logits come from int8 codes (see the module docstring).
+
+    qkv: [B, L, 3C] packed in_proj output; kmask: [L] additive f32 (0 for
+    real keys, -1e9 for padding).  Returns [B, L, C] in qkv's dtype.  On a
+    CUDA device qkv must be bf16 (or f32 without ``qk_int8``) and contiguous
+    with C / heads in {16, 32, 64, 128}; L needs no alignment.
+    """
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % heads:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not [B, L, 3C] with "
+                         f"C divisible by heads={heads}")
+    L = qkv.shape[1]
+    if kmask.shape != (L,):
+        raise ValueError(f"kmask {tuple(kmask.shape)} != ({L},)")
+    if torch.is_grad_enabled() and (qkv.requires_grad or kmask.requires_grad):
+        return MhaLanesFunction.apply(qkv, kmask, heads, scale, qk_int8)
+    return _forward(qkv, kmask, heads, scale, qk_int8)

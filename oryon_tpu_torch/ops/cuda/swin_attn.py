@@ -17,7 +17,10 @@ function because the off-diagonal terms are exactly zero after the softmax.
 The CUDA source is ``oryon_tpu_torch/csrc/swin_attn.cu``.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
-version (``*_plain``) for CPU tensors.  Which kernel serves which shape
+version (``*_plain``) for CPU tensors.  Neither takes a gradient, on either
+device (``_lib.forward_only``: the backward raises): the JAX package's
+kernels have no ``custom_vjp``, so a Swin tower trained through them raises
+here too.  Which kernel serves which shape
 (``kernel_entry``):
 
 - head dimension 32 (every Swin variant) with windows of up to 64 tokens:
@@ -241,6 +244,12 @@ def packed_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias.dim() != 4 or bias.shape[1:] != (heads, N, N) or Bw % bias.shape[0]:
         raise ValueError(f"bias {tuple(bias.shape)} is not [nw, {heads}, {N}, "
                          f"{N}] with nw dividing Bw={Bw}")
+    return _lib.forward_only("packed_window_attention (K3, Swin attn_impl=pallas)",
+                             lambda *t: _packed(*t, heads, scale), q, k, v, bias)
+
+
+def _packed(q, k, v, bias, heads: int, scale: float) -> torch.Tensor:
+    _, N, C = q.shape
     if q.device.type == "cpu":
         return packed_window_attention_plain(q, k, v, bias, heads, scale)
     if not bias.is_floating_point():
@@ -272,6 +281,12 @@ def band_window_attention(qkv_map: torch.Tensor, bias: torch.Tensor,
     nw = (Hp // window) * (Wp // window)
     if bias.shape != (nw, heads, N, N):
         raise ValueError(f"bias {tuple(bias.shape)} != ({nw}, {heads}, {N}, {N})")
+    return _lib.forward_only("band_window_attention (K4, Swin attn_impl=band)",
+                             lambda *t: _band(*t, heads, window, scale), qkv_map, bias)
+
+
+def _band(qkv_map, bias, heads: int, window: int, scale: float) -> torch.Tensor:
+    C, N = qkv_map.shape[-1] // 3, window * window
     if qkv_map.device.type == "cpu":
         return band_window_attention_plain(qkv_map, bias, heads, window, scale)
     _check_cuda((qkv_map,), bias, torch.float32)

@@ -385,6 +385,54 @@ def make_text_cache(model: OryonModel):
     return get
 
 
+TRAIN_TEXT_CACHE_ENTRIES = 4096   # about 1 GB of [80, 768] f32 rows
+
+
+def make_train_text_cache(model: OryonModel):
+    """Prompt-embedding cache for training, keyed by the token bytes of a
+    pair's prompt set (synset and template augmentation vary the prompts
+    from pair to pair).  Returns get(prompt_ids [B, P, L], a tensor or a
+    host array) -> [B, P, D] on the text tower's device.
+
+    Misses are encoded together in one [B, P, L] batch (the first row
+    repeated as filler); beyond ``TRAIN_TEXT_CACHE_ENTRIES`` entries leave
+    first in, first out.  It encodes with a private copy of the text tower, which
+    training never changes (the tower is frozen)."""
+    import copy
+
+    tower = copy.deepcopy(model.vlm_text).eval()
+    for p in tower.parameters():
+        p.requires_grad_(False)
+    device = next(tower.parameters()).device
+    cache: Dict[bytes, torch.Tensor] = {}
+
+    def get(prompt_ids) -> torch.Tensor:
+        ids_np = (prompt_ids.cpu().numpy() if isinstance(prompt_ids, torch.Tensor)
+                  else np.asarray(prompt_ids))
+        B, P, L = ids_np.shape
+        keys = [ids_np[i].tobytes() for i in range(B)]
+        miss: Dict[bytes, int] = {}
+        for i, k in enumerate(keys):
+            if k not in cache and k not in miss:
+                miss[k] = i
+        if miss:
+            mk = list(miss)
+            arr = np.repeat(ids_np[:1], B, axis=0)
+            arr[: len(mk)] = ids_np[[miss[k] for k in mk]]
+            ids = torch.as_tensor(arr, device=device)
+            with torch.no_grad():
+                embs = tower(ids.reshape(B * P, L)).reshape(B, P, -1)
+            for j, k in enumerate(mk):
+                cache[k] = embs[j]
+        # gather before evicting: eviction may drop keys this batch holds
+        rows = torch.stack([cache[k] for k in keys])
+        while len(cache) > TRAIN_TEXT_CACHE_ENTRIES:
+            cache.pop(next(iter(cache)))
+        return rows
+
+    return get
+
+
 def run_test_epoch(pipeline_fn, dataset, evaluator, batch_size: int, csv_fp=None,
                    compute_vsd: bool = True, text_cache=None, save_hook=None,
                    viz_dir=None, loader=None, drain_lookahead: int = 3,

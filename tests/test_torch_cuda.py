@@ -502,3 +502,65 @@ def test_run_test_torch_main_at_small_size_on_the_card(cuda, tmp_path, capsys):
     assert len(rows) == 4 and all(len(r.split(",")) == 5 for r in rows)
     saved = json.load(open(sw.json))
     assert len(saved["VSD"]) == 4 and all(np.isfinite(saved["AR"]))
+
+
+@pytest.mark.cuda
+def test_k1_gradient_on_the_card(cuda):
+    """K1 under autograd on the card: the forward launches the kernel once,
+    the backward is autograd through the plain ``reference_mha`` (no launch),
+    so d qkv equals autograd of the plain version and the output is within
+    the kernel's 2e-2."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    rs = np.random.RandomState(4)
+    B, L, H, hd = 2, 130, 4, 64
+    qkv = torch.from_numpy(rs.randn(B, L, 3 * H * hd).astype(np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_()
+    m = torch.where(torch.arange(L) < 120, 0.0, -1e9).to(cuda)
+    dout = torch.from_numpy(rs.randn(B, L, H * hd).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = mha_lanes.launches
+    out = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, hd ** -0.5)
+    (dq,) = torch.autograd.grad(out, qkv, dout)
+    assert mha_lanes.launches == before + 1
+    ref = mha_lanes.reference_mha(qkv, m, H, hd ** -0.5)
+    (dq_ref,) = torch.autograd.grad(ref, qkv, dout)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    assert torch.equal(dq, dq_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train_towers", [False, True])
+def test_tiny_train_step_on_the_card(cuda, train_towers):
+    """One train step of the tiny model (f32 towers: K1's f32 mode) on the
+    card against the same step on the CPU: K1 launches 2 a step (+ 2
+    recomputed under ``train_towers``), the losses within 1e-4 relative, the
+    fusion weights' SGD update (linear in the gradient) within 1e-4 of its
+    size; TF32 off, as the f32 parity needs."""
+    from oryon_tpu_torch.data.synthetic import synthetic_pair_batch
+    from oryon_tpu_torch.infer import full_precision_matmuls
+    from oryon_tpu_torch.models.layers import random_init_
+    from oryon_tpu_torch.models.oryon import tiny_oryon
+    from oryon_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from oryon_tpu_torch.train import create_train_state, make_train_step
+
+    kw = dict(seed=0, batch=2, img_hw=(28, 28), n_corrs=32, n_prompts=8, context_len=16,
+              vocab=600)
+    full_precision_matmuls()
+    out = {}
+    for dev in ("cpu", cuda):
+        model = random_init_(tiny_oryon(train_towers=train_towers),
+                             torch.Generator().manual_seed(0)).to(dev)
+        state = create_train_state(model, lr=0.1, total_steps=3, optim_type="SGD")
+        reset_launch_counts()
+        _, m = make_train_step()(state, synthetic_pair_batch(**kw, device=dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert launch_counts()["k1"] == (4 if train_towers else 2)
+        out[str(dev)] = (float(m["loss/total"]),
+                         model.fusion.conv1.weight.detach().cpu().clone())
+    (l_cpu, w_cpu), (l_gpu, w_gpu) = out["cpu"], out[str(cuda)]
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-4)
+    w0 = random_init_(tiny_oryon(), torch.Generator().manual_seed(0)).fusion.conv1.weight
+    step = (w_cpu - w0.detach()).abs().max().item()
+    assert (w_gpu - w_cpu).abs().max().item() <= 1e-4 * step + 1e-7

@@ -230,3 +230,84 @@ def test_mesh_readers_match_jax(tmp_path):
     got, ref = tm.load_nocs_object(base), jm.load_nocs_object(base)
     for k in ("pts", "normals", "faces"):
         _eq(got[k], ref[k], k)
+
+
+def test_train_collate_and_fields_match_jax(nocs_root):
+    """``collate(train=True)`` and ``train_fields``: the fields a train step
+    reads equal the JAX package's, the rest are dropped as there; the
+    prompt ids stay on the host (the prompt cache keys on them)."""
+    from oryon_tpu.data.pair_batch import train_fields as jax_train_fields
+    from oryon_tpu_torch.data.pair_batch import device_fields, train_fields
+
+    jds, tds = _datasets(nocs_root, augment=True)
+    ref = jax_train_fields(jds.collate([jds.get_pair(i, train=True) for i in range(2)],
+                                       train=True))
+    got = tds.collate([tds.get_pair(i, train=True) for i in range(2)], train=True)
+    assert isinstance(got.prompt_ids, np.ndarray) and isinstance(got.valid, torch.Tensor)
+    got = train_fields(got)
+    _eq(got.prompt_ids, ref.prompt_ids, "prompt_ids")
+    assert got.anchor._fields == ref.anchor._fields and got._fields == ref._fields
+    for view in ("anchor", "query"):
+        for k in ref.anchor._fields:
+            _eq(getattr(getattr(got, view), k), getattr(getattr(ref, view), k), f"{view}.{k}")
+    for k in ("corrs", "corr_valid", "valid", "rel_pose", "cls_id", "instance_id", "id_a",
+              "id_q", "text_emb"):
+        _eq(getattr(got, k), getattr(ref, k), k)
+    emb = torch.zeros(2, 3, 4)
+    cached = train_fields(got._replace(text_emb=emb))
+    assert cached.prompt_ids is None and cached.text_emb is emb
+    assert device_fields(tds.collate([tds.get_pair(0)])).id_a is None
+
+
+def test_synthetic_pair_batch_is_jaxs_bit_for_bit():
+    from oryon_tpu.data.synthetic import synthetic_pair_batch as jax_batch
+    from oryon_tpu_torch.data.synthetic import synthetic_pair_batch
+
+    kw = dict(seed=7, batch=3, img_hw=(40, 48), orig_hw=(120, 160), n_corrs=50,
+              n_prompts=4, context_len=16, vocab=600)
+    ref, got = jax_batch(**kw), synthetic_pair_batch(**kw)
+    for view in ("anchor", "query"):
+        for k in ref.anchor._fields:
+            g, r = getattr(getattr(got, view), k), np.asarray(getattr(getattr(ref, view), k))
+            assert g.dtype == (torch.float32 if r.dtype == np.uint16 else
+                               torch.from_numpy(r.copy()).dtype), f"{view}.{k}"
+            _eq(g, r.astype(np.float32) if r.dtype == np.uint16 else r, f"{view}.{k}")
+    for k in ("prompt_ids", "corrs", "corr_valid", "valid", "rel_pose", "cls_id",
+              "instance_id", "id_a", "id_q"):
+        g, r = getattr(got, k), np.asarray(getattr(ref, k))
+        if isinstance(g, torch.Tensor):
+            assert g.dtype == torch.from_numpy(r.copy()).dtype, k
+        _eq(g, r, k)
+
+
+def test_misc_and_logging_match_jax(tmp_path):
+    from oryon_tpu.utils.logging import MetricLogger as JLogger
+    from oryon_tpu.utils.misc import box_from_mask as jax_box
+    from oryon_tpu_torch.utils.logging import MetricLogger, StageTimer
+    from oryon_tpu_torch.utils.misc import box_from_mask, set_deterministic_seed
+
+    m = np.zeros((10, 12), np.uint8)
+    m[2:5, 3:9] = 2
+    for mask, mid in ((m, 2), (m, 1), (np.zeros((4, 4), np.uint8), 1)):
+        assert box_from_mask(mask, mid) == jax_box(mask, mid)
+    g = set_deterministic_seed(11)
+    a = (np.random.rand(), torch.rand(1).item(), torch.rand(1, generator=g).item())
+    g = set_deterministic_seed(11)
+    assert a == (np.random.rand(), torch.rand(1).item(), torch.rand(1, generator=g).item())
+
+    logs = []
+    for cls, d in ((JLogger, tmp_path / "jax"), (MetricLogger, tmp_path / "port")):
+        log = cls(str(d), "run")
+        log.log_step(3, {"loss/total": 0.5, "metric/iou_a": np.float32(0.25)}, prefix="train")
+        log.log_step(4, {"loss/total": torch.tensor(1.5)}, prefix="train")
+        means = log.epoch_summary(0)
+        log.close()
+        with open(log.path) as f:
+            lines = [json.loads(line) for line in f]
+        logs.append((means, [{k: v for k, v in r.items() if k != "time"} for r in lines]))
+    assert logs[1] == logs[0] and logs[1][0]["train_loss/total"] == 1.0
+    timer = StageTimer()
+    for _ in range(2):
+        with timer("load"):
+            pass
+    assert set(timer.summary()) == {"load"} and timer.counts["load"] == 2

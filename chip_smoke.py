@@ -113,6 +113,7 @@ import time
 import numpy as np
 
 K1_SHAPE = (16, 577, 3 * 1024)    # 2B images x (CLS + 24^2 tokens) x 3C, ViT-L
+K1_TRAIN_SHAPE = (64, 577, 3 * 1024)   # the trainer's 2B images at B=32, no pad mask
 K1_HEADS, K1_REAL = 16, 560       # keys >= K1_REAL carry the -1e9 pad mask
 K1_PADDED = 640                   # the tower pads 577 -> 640 for fused_i8qk and flash
 K2_PAIRS, K2_SRC, K2_TGT = 8, 5120, 192 * 192
@@ -387,6 +388,7 @@ def phase_k1(torch, iters):
     name, *case = K1_OTHER_HD
     other_err = compare(torch, *_k1_case(torch, mha_lanes, g, *case), f"K1 {name}")
     f32_err, res["f32"] = _k1_f32(torch, mha_lanes, g, iters)
+    res["train"] = _k1_train(torch, mha_lanes, g, iters)
     mask16 = kmask.to(torch.bfloat16)[None, None, None, :]
     res.update(timed(kernel,
                      lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
@@ -403,7 +405,31 @@ def phase_k1(torch, iters):
                    f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise "
                    f"equal; host {res['host_us']:.1f} us per wrapper call; f32 mode "
                    + ", ".join(f"{n} {list(shape)} {e:.2e}" for n, shape, e in f32_err)
-                   + f" (tol {K1_F32_TOL}), small: {times_txt(res['f32'])}")
+                   + f" (tol {K1_F32_TOL}), small: {times_txt(res['f32'])}; training "
+                   f"shape {list(K1_TRAIN_SHAPE)}, no pad mask: max abs err "
+                   f"{res['train']['err']:.3e}, {times_txt(res['train'])}")
+    return res
+
+
+def _k1_train(torch, mha_lanes, g, iters):
+    """K1 at the trainer's shape (``K1_TRAIN_SHAPE``, no key masked) against
+    reference_mha at KERNEL_TOL; timed beside the plain version and SDPA,
+    with its bound."""
+    B, L, C3 = K1_TRAIN_SHAPE
+    qkv = torch.randn(K1_TRAIN_SHAPE, generator=g, device=DEVICE).to(torch.bfloat16)
+    kmask = torch.zeros(L, device=DEVICE)
+    scale = (C3 // 3 // K1_HEADS) ** -0.5
+
+    def kernel():
+        return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
+
+    def plain():
+        return mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
+    got = kernel()
+    res = {"err": compare(torch, got, plain(), "K1 at the training shape")}
+    res.update(timed(kernel, plain, lambda: sdpa_packed(torch, qkv, None, K1_HEADS), iters))
+    res.update(bound(nbytes(qkv, kmask, got),
+                     {"bf16": 4 * B * K1_HEADS * L * L * (C3 // 3 // K1_HEADS)}))
     return res
 
 
@@ -1904,6 +1930,7 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
 
 
 TRAIN_PAIRS, TRAIN_BATCH = 64, 32   # two steps an epoch at the trainer's default B
+TRAIN_REPEATS, TRAIN_FILL = 8, 3    # timed steps: the tree 8 times over, 3 fill steps
 OVERFIT_BATCH, OVERFIT_STEPS = 8, 10
 GRAD_COS_BOUND, GRAD_LOSS_TOL = 0.999, 1e-2   # fused vs einsum tower (bf16 logits there)
 
@@ -1931,39 +1958,49 @@ def _epoch_losses(text: str) -> dict:
     return out
 
 
-def _split_steps(torch, tr, steps: int):
-    """``steps`` train steps from the loader (whole epochs), each split by
-    CUDA events into augment, forward + loss, backward and optimizer, and by
-    the host clock into the wait for the loader and the step.  Returns (the
-    medians in ms, the first step's launch counts, pairs a second over all
-    the steps)."""
+def _split_steps(torch, tr):
+    """Train steps over the tree ``TRAIN_REPEATS`` times over, through one
+    ``PrefetchLoader`` (one worker thread, as the trainer's).  Each step is
+    split by CUDA events into augment, forward + loss, backward and
+    optimizer, and by the host clock into the wait in ``next()`` on the
+    loader and the step.  Medians over the steps past the first
+    ``TRAIN_FILL`` (the loader's fill), in ms; ``pairs_s`` is the steady
+    rate (B over the median period between two batches), ``whole_pairs_s``
+    the whole window's.  Also returns the first step's launch counts."""
+    from oryon_tpu_torch.data.loader import PrefetchLoader
     from oryon_tpu_torch.data.pair_batch import train_fields
     from oryon_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-    rows, counts = [], None
+    loader = PrefetchLoader(_Repeated(tr.train_ds, TRAIN_REPEATS), TRAIN_BATCH, shuffle=True,
+                            drop_last=True, seed=0, train=True)
+    it, rows, got, counts = iter(loader), [], [], None
     torch.cuda.synchronize()
     start = time.perf_counter()
-    while len(rows) < steps:
-        it, before = iter(tr.loader), len(rows)
-        while len(rows) < steps:
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            if batch is None:
-                break
-            t1 = time.perf_counter()
-            batch = train_fields(batch._replace(text_emb=tr.text_cache(batch.prompt_ids)))
-            events: list = []
-            reset_launch_counts()
-            tr.step_fn(tr.state, batch, tr.generator, stage_events=events)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            counts = counts or launch_counts()
-            ms = {n1: e0.elapsed_time(e1) for (_, e0), (n1, e1) in zip(events, events[1:])}
-            ms.update(wait=(t1 - t0) * 1e3, step=(t2 - t1) * 1e3)
-            rows.append(ms)
-        check(len(rows) > before, "the training loader yields no batch")
-    pairs_s = steps * TRAIN_BATCH / (time.perf_counter() - start)
-    med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
-    return med, counts, pairs_s
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        t1 = time.perf_counter()
+        got.append(t1)
+        batch = train_fields(batch._replace(text_emb=tr.text_cache(batch.prompt_ids)))
+        events: list = []
+        reset_launch_counts()
+        tr.step_fn(tr.state, batch, tr.generator, stage_events=events)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = counts or launch_counts()
+        ms = {n1: e0.elapsed_time(e1) for (_, e0), (n1, e1) in zip(events, events[1:])}
+        ms.update(wait=(t1 - t0) * 1e3, step=(t2 - t1) * 1e3)
+        rows.append(ms)
+    whole = time.perf_counter() - start
+    check(len(rows) == len(loader) > TRAIN_FILL + 2,
+          f"{len(rows)} of {len(loader)} timed steps")
+    steady = range(TRAIN_FILL, len(rows))
+    med = {k: float(np.median([rows[i][k] for i in steady])) for k in rows[0]}
+    med["period"] = float(np.median([got[i] - got[i - 1] for i in steady])) * 1e3
+    return {"ms": med, "counts": counts, "steps": len(rows),
+            "pairs_s": TRAIN_BATCH * 1e3 / med["period"],
+            "whole_pairs_s": len(rows) * TRAIN_BATCH / whole}
 
 
 @phase("train")
@@ -2012,10 +2049,11 @@ def phase_train(torch, tmp, pd_dir, layers, smi_line):
           f"{tr.state.optimizer.param_groups[0]['lr']} (want {total}, {sched(total - 1)})")
     check(rcounts["k1"] == layers * (steps + valid_batches), f"resumed launches {rcounts}")
 
-    # steps from the loader, timed in parts; the first one alone launches K1
-    # 24 times and nothing else
+    # steady steps from one loader, timed in parts; the first one alone
+    # launches K1 24 times and nothing else
     torch.cuda.reset_peak_memory_stats()
-    split, scounts, epoch_pairs_s = _split_steps(torch, tr, 2 * steps)
+    sp = _split_steps(torch, tr)
+    split, scounts = sp["ms"], sp["counts"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(scounts["k1"] == layers and sum(scounts.values()) == layers,
           f"one train step: launches {scounts}, expected K1 {layers} only")
@@ -2027,14 +2065,16 @@ def phase_train(torch, tmp, pd_dir, layers, smi_line):
                      f"{first_s:.1f} s: {2 * steps} steps, launches K1 {counts['k1']} K2 "
                      f"{counts['k2']}; resumed for epoch 3 in {resume_s:.1f} s: step "
                      f"{total}, LR {sched(total - 1):.3e} as the schedule, loss "
-                     f"{last['train_loss/total']:.4f}; one step K1 {scounts['k1']}; step "
-                     f"split (median of {2 * steps}, ms): loader wait {split['wait']:.1f}, augment "
+                     f"{last['train_loss/total']:.4f}; one step K1 {scounts['k1']}; "
+                     f"{sp['steps']} steps through one loader over the tree {TRAIN_REPEATS} "
+                     f"times: {sp['pairs_s']:.2f} pairs/s trained steady "
+                     f"({sp['whole_pairs_s']:.2f} whole), a step {split['period']:.1f} ms = "
+                     f"loader wait {split['wait']:.1f} + host step {split['step']:.1f} "
+                     f"(medians past {TRAIN_FILL} fill steps; on the card: augment "
                      f"{split['augment']:.1f}, forward + loss {split['forward']:.1f}, "
-                     f"backward {split['backward']:.1f}, optimizer {split['optimizer']:.1f}, "
-                     f"host step {split['step']:.1f}; {epoch_pairs_s:.1f} pairs/s trained "
-                     f"over {2 * steps} steps from the loader; peak {peak_gib:.2f} GiB "
-                     f"allocated"),
-            "split": split, "epoch_pairs_s": epoch_pairs_s, "peak_gib": peak_gib}
+                     f"backward {split['backward']:.1f}, optimizer {split['optimizer']:.1f}); "
+                     f"peak {peak_gib:.2f} GiB allocated"),
+            "split": split, "pairs_s": sp["pairs_s"], "peak_gib": peak_gib}
 
 
 def _full_train_model(torch, seed: int, train_towers: bool = False):
@@ -2131,15 +2171,16 @@ def phase_train_towers(torch, iters, layers):
     loss, _ = loss_and_metrics(model, state.loss_cfg, batch, torch.Generator(device=DEVICE))
     try:
         loss.backward()
-        raise PhaseError("attn_impl=flash under train_towers did not raise")
+        raised = "nothing"
     except RuntimeError as e:
-        check("cannot be differentiated" in str(e), f"flash raised {e}")
-    del loss
-    del model, state, batch, g_k, g_p
+        raised = str(e)
+    check("cannot be differentiated" in raised,
+          f"attn_impl=flash under train_towers: backward raised {raised}")
+    del loss, model, state, batch, g_k, g_p
     torch.cuda.empty_cache()
 
     # K1's backward (autograd through the plain version) at the training shape
-    B, L, C3 = 2 * TRAIN_BATCH, K1_SHAPE[1], K1_SHAPE[2]
+    B, L, C3 = K1_TRAIN_SHAPE
     g = torch.Generator(device=DEVICE).manual_seed(4)
     qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
     kmask = torch.zeros(L, device=DEVICE)
@@ -2148,9 +2189,14 @@ def phase_train_towers(torch, iters, layers):
     out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
     ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
     lib = sdpa_packed(torch, qkv, None, K1_HEADS)
+    fwd_err = compare(torch, out, ref, "K1's autograd.Function forward at the training shape")
     dq = torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
     dq_ref = torch.autograd.grad(ref, qkv, dout, retain_graph=True)[0]
-    bwd_err = compare(torch, dq, dq_ref, "K1 backward vs autograd of the plain version")
+    # by design the same function (the backward recomputes reference_mha):
+    # this holds the wiring, not a kernel
+    torch.cuda.synchronize()
+    same_bwd = bool(torch.equal(dq, dq_ref))
+    check(same_bwd, "K1's backward differs from autograd through reference_mha")
     torch.cuda.reset_peak_memory_stats()
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, dout, retain_graph=True), iters)
     bwd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2158,7 +2204,7 @@ def phase_train_towers(torch, iters, layers):
     hd = C3 // 3 // K1_HEADS
     # five L x L x hd products: S = Q K^T again, dV, dP, dQ, dK
     b = bound(nbytes(qkv, kmask, dout, dq), {"bf16": 10 * B * K1_HEADS * L * L * hd})
-    res = {"k1_bwd": {"ms": bwd_ms, "library_ms": lib_ms, "err": bwd_err, **b},
+    res = {"k1_bwd": {"ms": bwd_ms, "library_ms": lib_ms, **b},
            "peak_gib": peak_gib, "step_ms": step_ms}
     res["line"] = (f"full width, B={TRAIN_BATCH}, Swin einsum, K1 fused: 2 steps "
                    f"({', '.join(f'{v:.0f}' for v in step_ms)} ms host) with launches "
@@ -2167,9 +2213,11 @@ def phase_train_towers(torch, iters, layers):
                    f"{peak_gib:.2f} GiB allocated; fusion/decoder gradient vs the einsum "
                    f"tower: cosine {cos:.6f} (bound {GRAD_COS_BOUND}), loss {loss_k:.5f} vs "
                    f"{loss_p:.5f} (rel {rel:.2e}, tol {GRAD_LOSS_TOL}); attn_impl=flash "
-                   f"raises; K1 backward at qkv [{B}, {L}, {C3}] bf16 (autograd through "
-                   f"the plain version): {bwd_ms:.3f} ms, max abs err vs autograd of "
-                   f"reference_mha {bwd_err:.2e}, SDPA backward {lib_ms:.3f} ms, bound "
+                   f"raises; K1 at qkv [{B}, {L}, {C3}] bf16 under autograd: forward (the "
+                   f"kernel) max abs err vs reference_mha {fwd_err:.3e} (tol {KERNEL_TOL}), "
+                   f"backward (autograd through the plain version, by design equal to "
+                   f"reference_mha's: {same_bwd}) {bwd_ms:.3f} ms, SDPA backward "
+                   f"{lib_ms:.3f} ms, bound "
                    f"{b['bound_ms']:.4f} ms ({b['bound_by']}), peak {bwd_peak:.2f} GiB")
     return res
 

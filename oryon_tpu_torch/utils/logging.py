@@ -2,8 +2,9 @@
 
 Counterpart of ``oryon_tpu/utils/logging.py``, the port's own copy: a JSONL
 metric stream (one line per logged step, one per epoch with its means)
-under the ``{train,valid}_loss/*`` / ``{train,valid}_metric/*`` names, and
-a wall-clock accumulator per stage.
+under the ``{train,valid}_loss/*`` / ``{train,valid}_metric/*`` names.
+The JAX module's ``StageTimer`` has no caller there or here and is not
+copied.
 """
 from __future__ import annotations
 
@@ -47,28 +48,3 @@ class MetricLogger:
 
     def close(self) -> None:
         self._fp.close()
-
-
-class StageTimer:
-    """Wall-clock seconds per named stage: ``with timer("load"): ...``;
-    ``summary()`` gives the mean seconds per entry."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    def __call__(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *exc):
-                timer.totals[name] += time.perf_counter() - self.t0
-                timer.counts[name] += 1
-
-        return _Ctx()
-
-    def summary(self) -> Dict[str, float]:
-        return {k: self.totals[k] / max(self.counts[k], 1) for k in self.totals}

@@ -281,19 +281,11 @@ def test_synthetic_pair_batch_is_jaxs_bit_for_bit():
 
 
 def test_misc_and_logging_match_jax(tmp_path):
+    """The port's ``MetricLogger`` writes the JAX one's JSONL lines and epoch
+    means.  (``utils/misc.py`` and ``StageTimer`` have no caller in either
+    package and are not ported.)"""
     from oryon_tpu.utils.logging import MetricLogger as JLogger
-    from oryon_tpu.utils.misc import box_from_mask as jax_box
-    from oryon_tpu_torch.utils.logging import MetricLogger, StageTimer
-    from oryon_tpu_torch.utils.misc import box_from_mask, set_deterministic_seed
-
-    m = np.zeros((10, 12), np.uint8)
-    m[2:5, 3:9] = 2
-    for mask, mid in ((m, 2), (m, 1), (np.zeros((4, 4), np.uint8), 1)):
-        assert box_from_mask(mask, mid) == jax_box(mask, mid)
-    g = set_deterministic_seed(11)
-    a = (np.random.rand(), torch.rand(1).item(), torch.rand(1, generator=g).item())
-    g = set_deterministic_seed(11)
-    assert a == (np.random.rand(), torch.rand(1).item(), torch.rand(1, generator=g).item())
+    from oryon_tpu_torch.utils.logging import MetricLogger
 
     logs = []
     for cls, d in ((JLogger, tmp_path / "jax"), (MetricLogger, tmp_path / "port")):
@@ -306,8 +298,29 @@ def test_misc_and_logging_match_jax(tmp_path):
             lines = [json.loads(line) for line in f]
         logs.append((means, [{k: v for k, v in r.items() if k != "time"} for r in lines]))
     assert logs[1] == logs[0] and logs[1][0]["train_loss/total"] == 1.0
-    timer = StageTimer()
-    for _ in range(2):
-        with timer("load"):
-            pass
-    assert set(timer.summary()) == {"load"} and timer.counts["load"] == 2
+
+
+def test_metric_logger_epochs_and_reopen_match_jax(tmp_path):
+    """Each epoch summary holds only the values logged since the previous
+    one, an epoch with nothing logged writes an empty mean, and a logger
+    reopened on the same run appends (a resumed run keeps its history), as
+    in the JAX package."""
+    from oryon_tpu.utils.logging import MetricLogger as JLogger
+    from oryon_tpu_torch.utils.logging import MetricLogger
+
+    runs = []
+    for cls, d in ((JLogger, tmp_path / "jax"), (MetricLogger, tmp_path / "port")):
+        means = []
+        for epoch, values in enumerate(([1.0, 3.0], [], [5.0])):
+            log = cls(str(d), "run")
+            for i, v in enumerate(values):
+                log.log_step(10 * epoch + i, {"loss/total": v, "loss/mask": v / 2},
+                             prefix="valid")
+            means.append(log.epoch_summary(epoch))
+            log.close()
+        with open(log.path) as f:
+            lines = [{k: v for k, v in json.loads(line).items() if k != "time"} for line in f]
+        runs.append((means, lines))
+    assert runs[1] == runs[0]
+    assert runs[1][0] == [{"valid_loss/total": 2.0, "valid_loss/mask": 1.0}, {},
+                          {"valid_loss/total": 5.0, "valid_loss/mask": 2.5}]

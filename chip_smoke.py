@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA device
     python3 chip_smoke.py --kernels  # device, build and the kernel phases only
     python3 chip_smoke.py --profile DIR  # + one profiled batch, tables in DIR
+    python3 chip_smoke.py --cards 4  # device, build, kernels, the CLIs over 4 cards
 
 Phases, each printing one line with its result and its time:
   1. device    the card (torch and nvidia-smi); fails without CUDA
@@ -12,7 +13,9 @@ Phases, each printing one line with its result and its time:
                attention) holds tensor-core (HGMMA; IGMMA for K1-i8's int8
                logits) and TMA-load instructions
   3. k1        fused attention kernel (wgmma, head dim 64) vs its plain
-               version at the ViT-L shape and at the edges of its tiling
+               version at the ViT-L shape, at a tensor-parallel rank's
+               [16, 577, 1536] with 8 heads and the data-parallel ranks'
+               shapes, and at the edges of its tiling
                (L = 640, 65, 1, one image, a fully masked leading key tile),
                one head-dim-32 case on the WMMA kernel, two launches bitwise
                equal, the host time of one wrapper call, and the f32 mode
@@ -31,7 +34,8 @@ Phases, each printing one line with its result and its time:
                WMMA kernel); the pre-pass alone gives its plain version's
                fragments exactly; pre-pass and attention kernel timed apart
   7. k2        masked-argmin kernels vs their plain version at the serving
-               shape: fp32 (CUDA cores) and bf16 (compacting pre-pass + wgmma),
+               shape and at a data-parallel rank's 4 pairs: fp32 (CUDA cores)
+               and bf16 (compacting pre-pass + wgmma),
                40% and 95% of the targets excluded, ragged sizes, pairs with
                all / all but one / no target excluded, duplicated targets; the
                pre-pass against torch.nonzero; pre-pass and main kernel timed
@@ -88,7 +92,21 @@ Phases, each printing one line with its result and its time:
                (cosine > 0.999, loss within 1e-2); attn_impl=flash raises in
                backward; K1's backward (autograd through the plain version)
                at [64, 577, 3072] timed against SDPA's backward
- 17. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
+ 17. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
+               train step over make_mesh(-1, 1) (gradient all-reduce, global
+               loss normaliser, global draws) equals the plain step bitwise
+               at full width, B=32; both timed in turns
+ 18. dp2       two gloo ranks spawned on the one card (NCCL refuses two ranks
+               on one GPU), mesh.data=2: 3 steps with run_train.py's defaults
+               at B=32 (16 a rank) against one device on the same batches and
+               draws (losses within rel 1e-3, fusion/decoder gradient cosine
+               above 0.9999); a served batch of 8 (4 a rank) bitwise one
+               device's runs of each rank's pairs with the same draws; K1 and
+               K2 launches per rank
+ 19. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
+               tower and featmaps against the unsharded model's (cosine above
+               0.999), served masks; K1 at 8 heads a rank
+ 20. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -116,6 +134,10 @@ K1_SHAPE = (16, 577, 3 * 1024)    # 2B images x (CLS + 24^2 tokens) x 3C, ViT-L
 K1_TRAIN_SHAPE = (64, 577, 3 * 1024)   # the trainer's 2B images at B=32, no pad mask
 K1_HEADS, K1_REAL = 16, 560       # keys >= K1_REAL carry the -1e9 pad mask
 K1_PADDED = 640                   # the tower pads 577 -> 640 for fused_i8qk and flash
+# a rank of mesh.model=2 serving B=8: its 8 of 16 heads; the two ranks of
+# mesh.data=2 training at B=32 and serving at B=8
+K1_TP_SHAPE = (16, 577, 3 * 512)
+K1_DP_SHAPES = ((32, 577, 3 * 1024), (8, 577, 3 * 1024))
 K2_PAIRS, K2_SRC, K2_TGT = 8, 5120, 192 * 192
 # Swin-B on 16 images at 384^2: (padded map side, channels, heads) per stage
 SWIN_STAGES = ((98, 128, 4), (49, 256, 8))
@@ -389,6 +411,9 @@ def phase_k1(torch, iters):
     other_err = compare(torch, *_k1_case(torch, mha_lanes, g, *case), f"K1 {name}")
     f32_err, res["f32"] = _k1_f32(torch, mha_lanes, g, iters)
     res["train"] = _k1_train(torch, mha_lanes, g, iters)
+    res["tp"] = _k1_train(torch, mha_lanes, g, iters, K1_TP_SHAPE, K1_HEADS // 2,
+                          "a tensor-parallel rank's shape")
+    dp_err = _k1_rank_shapes(torch, mha_lanes, g)
     mask16 = kmask.to(torch.bfloat16)[None, None, None, :]
     res.update(timed(kernel,
                      lambda: mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
@@ -407,30 +432,50 @@ def phase_k1(torch, iters):
                    + ", ".join(f"{n} {list(shape)} {e:.2e}" for n, shape, e in f32_err)
                    + f" (tol {K1_F32_TOL}), small: {times_txt(res['f32'])}; training "
                    f"shape {list(K1_TRAIN_SHAPE)}, no pad mask: max abs err "
-                   f"{res['train']['err']:.3e}, {times_txt(res['train'])}")
+                   f"{res['train']['err']:.3e}, {times_txt(res['train'])}; tensor-parallel "
+                   f"rank {list(K1_TP_SHAPE)} with {K1_HEADS // 2} heads: max abs err "
+                   f"{res['tp']['err']:.3e}, {times_txt(res['tp'])}; data-parallel ranks "
+                   + ", ".join(str(list(s_)) for s_ in K1_DP_SHAPES)
+                   + f": max abs err {dp_err:.3e}")
     return res
 
 
-def _k1_train(torch, mha_lanes, g, iters):
-    """K1 at the trainer's shape (``K1_TRAIN_SHAPE``, no key masked) against
+def _k1_train(torch, mha_lanes, g, iters, shape=K1_TRAIN_SHAPE, heads=K1_HEADS,
+              what="the training shape"):
+    """K1 at ``shape`` with ``heads`` heads and no key masked (the trainer's
+    shape by default; the tensor-parallel rank's local heads) against
     reference_mha at KERNEL_TOL; timed beside the plain version and SDPA,
     with its bound."""
-    B, L, C3 = K1_TRAIN_SHAPE
-    qkv = torch.randn(K1_TRAIN_SHAPE, generator=g, device=DEVICE).to(torch.bfloat16)
+    B, L, C3 = shape
+    qkv = torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
     kmask = torch.zeros(L, device=DEVICE)
-    scale = (C3 // 3 // K1_HEADS) ** -0.5
+    scale = (C3 // 3 // heads) ** -0.5
 
     def kernel():
-        return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
+        return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, heads, scale)
 
     def plain():
-        return mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
+        return mha_lanes.reference_mha(qkv, kmask, heads, scale)
     got = kernel()
-    res = {"err": compare(torch, got, plain(), "K1 at the training shape")}
-    res.update(timed(kernel, plain, lambda: sdpa_packed(torch, qkv, None, K1_HEADS), iters))
+    res = {"err": compare(torch, got, plain(), f"K1 at {what}")}
+    res.update(timed(kernel, plain, lambda: sdpa_packed(torch, qkv, None, heads), iters))
     res.update(bound(nbytes(qkv, kmask, got),
-                     {"bf16": 4 * B * K1_HEADS * L * L * (C3 // 3 // K1_HEADS)}))
+                     {"bf16": 4 * B * heads * L * L * (C3 // 3 // heads)}))
     return res
+
+
+def _k1_rank_shapes(torch, mha_lanes, g):
+    """K1 against reference_mha at the data-parallel ranks' shapes (no key
+    masked): max abs error."""
+    err = 0.0
+    for shape in K1_DP_SHAPES:
+        qkv = torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        kmask = torch.zeros(shape[1], device=DEVICE)
+        scale = (shape[2] // 3 // K1_HEADS) ** -0.5
+        err = max(err, compare(torch, mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale),
+                               mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
+                               f"K1 at {list(shape)}"))
+    return err
 
 
 def _k1_f32(torch, mha_lanes, g, iters):
@@ -862,6 +907,10 @@ def phase_k2(torch, iters):
     # the serving share: everything outside a blob of 5% excluded
     blob = _blob_mask(torch, K2_PAIRS, 192, 0.05)
     sparse = _k2_gates(torch, mk, src, tgt, blob, "bf16", "K2 bf16 blob mask")
+    # a rank of mesh.data=2 serving B=8 matches its 4 pairs
+    half = K2_PAIRS // 2
+    rank = _k2_gates(torch, mk, src[:half], tgt[:half], blob[:half], "bf16",
+                     "K2 bf16 at a data-parallel rank's pairs")
 
     # no single PyTorch call computes a masked cosine argmin
     out.update(timed(lambda: mk.masked_argmin(src, tgt, bad, "bf16"),
@@ -890,7 +939,9 @@ def phase_k2(torch, iters):
         f"{out['blob_reduce_ms']:.4f}, bound {blob_bound['bound_ms']:.4f} "
         f"{blob_bound['bound_by']}), argmins same {sparse['same']:.6f}; edges (S={S_e}, "
         f"N={N_e}; all, all but one, none excluded; duplicates to the lowest index) min err "
-        f"{edge['err']:.2e}, argmins same {edge['same']:.6f}; two launches bitwise equal; "
+        f"{edge['err']:.2e}, argmins same {edge['same']:.6f}; a data-parallel rank's "
+        f"{half} pairs: min err {rank['err']:.2e}, argmins same {rank['same']:.6f}; "
+        f"two launches bitwise equal; "
         f"host {out['host_us']:.1f} us per wrapper call")
     return out
 
@@ -2222,10 +2273,431 @@ def phase_train_towers(torch, iters, layers):
     return res
 
 
+# ---- several GPUs: mesh1 (NCCL, one rank), dp2 and tp2 (gloo, two ranks on
+# the one card; they say nothing of scaling: the ranks share the card)
+MESH1_STEPS = 3                   # timed steps per turn, plain / mesh / mesh / plain
+DP2_STEPS = 3
+MP2_TIMEOUT = 480                 # seconds for both two-rank phases
+
+
+def _train_defaults(torch, model):
+    """(train state, augmentation, accum_steps) of run_train.py's defaults on
+    ``model`` (fresh optimizer)."""
+    from oryon_tpu_torch.config import load_config
+    from oryon_tpu_torch.data.device_augment import DeviceAugConfig
+    from oryon_tpu_torch.losses.feature_loss import FeatureLossConfig
+    from oryon_tpu_torch.train import create_train_state
+    cfg = load_config(None, [])
+    o, lo, rgb = cfg.optimization, cfg.loss, cfg.augs.rgb
+    state = create_train_state(
+        model, lr=o.lr, weight_decay=o.w_decay, total_steps=1000, gamma=o.gamma,
+        loss_cfg=FeatureLossConfig(pos_margin=lo.pos_margin, neg_margin=lo.neg_margin,
+                                   neg_kernel=lo.neg_kernel_size, neg_pool=lo.neg_pool,
+                                   hard_negatives=lo.hard_negatives, mask_type=lo.mask_type,
+                                   mask_threshold=cfg.test.mask_threshold, w_mask=lo.w.mask,
+                                   w_pos=lo.w.pos, w_neg=lo.w.neg),
+        optim_type=o.optim_type, scheduler_type=o.scheduler_type, momentum=o.momentum)
+    aug = DeviceAugConfig(jitter=rgb.jitter, bright=rgb.bright, hflip=rgb.hflip,
+                          vflip=rgb.vflip) if rgb.device else None
+    return state, aug, cfg.training.accum_steps
+
+
+def _train_batches(torch, model, B: int, seeds):
+    """Synthetic full-width batches of B with their prompt embeddings."""
+    from oryon_tpu_torch.data.synthetic import synthetic_pair_batch
+    from oryon_tpu_torch.pipeline import make_train_text_cache
+    cache, out = make_train_text_cache(model), []
+    for seed in seeds:
+        b = synthetic_pair_batch(seed=seed, batch=B, n_prompts=model.fusion_cfg.num_prompts,
+                                 device=DEVICE)
+        out.append(b._replace(text_emb=cache(b.prompt_ids), prompt_ids=None))
+    return out
+
+
+def _trainable(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if n.split(".")[0] in ("fusion", "decoder")}
+
+
+def _reset(model, weights):
+    import torch
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n in weights:
+                p.copy_(weights[n])
+
+
+def _steps(torch, model, init, batches, mesh=None, rows=None):
+    """Train from ``init`` (fusion and decoder weights) over ``batches`` with
+    run_train.py's defaults, the draws from a generator seeded 0: (losses,
+    the first step's fusion/decoder gradient on the host, seconds a step).
+    ``mesh``: each rank steps on its rows of every batch."""
+    from oryon_tpu_torch.parallel.mesh import shard_batch
+    from oryon_tpu_torch.train import make_train_step
+    _reset(model, init)
+    state, aug, accum = _train_defaults(torch, model)
+    step = make_train_step(aug, accum, mesh)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    losses, secs, grad = [], [], None
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, b if mesh is None else shard_batch(b, mesh, accum), gen)
+        losses.append(float(m["loss/total"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if grad is None:
+            grad = _fd_grad(model).cpu()
+    return losses, grad, secs
+
+
+def _cos(torch, a, b) -> float:
+    return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(),
+                                                 dim=0).item()
+
+
+@phase("mesh1")
+def phase_mesh1(torch, tmp, smi_line):
+    """One rank over NCCL: serving_mesh gives no mesh; the train step over
+    make_mesh(-1, 1) (its gradient all-reduce, the global normaliser, the
+    draws of the global batch) is the plain step at full width, B=32: the
+    first loss bitwise, its gradient to cosine 0.99999 and the later losses
+    to rel 1e-4 (the backward's scatter-adds are not bitwise from run to
+    run, so neither is the plain step against itself); both timed in
+    turns."""
+    from oryon_tpu_torch.parallel import mesh as pm
+    pm.init_distributed("cuda", "nccl", f"file://{tmp}/mesh1.store", 0, 1, local_rank=0)
+    try:
+        check(pm.serving_mesh(-1, 1, 8) is None, "serving_mesh on one rank gave a mesh")
+        mesh = pm.make_mesh(-1, 1)
+        check(mesh.shape == {"data": 1, "model": 1}, f"mesh {mesh.shape}")
+        model = _full_train_model(torch, 17)
+        init = _trainable(model)
+        batches = _train_batches(torch, model, TRAIN_BATCH, range(40, 40 + MESH1_STEPS))
+        runs = {"plain": [], "mesh": []}
+        for m in (None, mesh, mesh, None):
+            runs["plain" if m is None else "mesh"].append(
+                _steps(torch, model, init, batches, m))
+        (plain, plain2), meshed = runs["plain"], runs["mesh"][0]
+        check(plain[0][0] == meshed[0][0], f"first loss plain {plain[0][0]} vs mesh "
+                                           f"{meshed[0][0]}")
+        cos = _cos(torch, plain[1], meshed[1])
+        check(cos > 0.99999, f"first gradient cosine mesh vs plain {cos:.8f}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(meshed[0], plain[0]))
+        rel_pp = max(abs(a - b) / abs(b) for a, b in zip(plain2[0], plain[0]))
+        check(rel < 1e-4, f"losses plain {plain[0]} vs mesh {meshed[0]}")
+        secs = {k: [t for r in v for t in r[2]] for k, v in runs.items()}
+        ms = {k: 1e3 * float(np.median(v)) for k, v in secs.items()}
+        spread = {k: (1e3 * min(v), 1e3 * max(v)) for k, v in secs.items()}
+    finally:
+        pm.shutdown()
+    return {"ms": ms, "line": (
+        f"serving_mesh None, mesh data=1 model=1 (nccl); B={TRAIN_BATCH} steps: losses "
+        f"{', '.join(f'{v:.5f}' for v in plain[0])}, the first equal to the plain step's, "
+        f"the first gradient's cosine {cos:.9f}, the losses within rel {rel:.1e} (plain "
+        f"against plain {rel_pp:.1e}); median step plain {ms['plain']:.1f} ms "
+        f"({spread['plain'][0]:.1f}-{spread['plain'][1]:.1f}), mesh {ms['mesh']:.1f} ms "
+        f"({spread['mesh'][0]:.1f}-{spread['mesh'][1]:.1f}), {2 * MESH1_STEPS} steps each in "
+        f"turns plain/mesh/mesh/plain: {TRAIN_BATCH / ms['plain'] * 1e3:.2f} vs "
+        f"{TRAIN_BATCH / ms['mesh'] * 1e3:.2f} pairs/s on {smi_line}")}
+
+
+def _serve_compare(torch, got, ref) -> dict:
+    """Agreement of two predictors' results on the same requests: masks
+    equal (fraction of pixels), largest pose difference (rad, m)."""
+    same = np.mean([np.mean(g["mask_a"] == r["mask_a"]) * 0.5
+                    + np.mean(g["mask_q"] == r["mask_q"]) * 0.5 for g, r in zip(got, ref)])
+    rot, trans = _pose_err(np.stack([np.asarray(g["pose"]) for g in got]),
+                           np.stack([np.asarray(r["pose"]) for r in ref]))
+    return {"masks_same": float(same), "rot": rot, "trans": trans,
+            "n_corrs_same": all(g["n_corrs"] == r["n_corrs"] for g, r in zip(got, ref))}
+
+
+def _serving_model(torch):
+    from oryon_tpu_torch.models.layers import random_init_
+    from oryon_tpu_torch.models.oryon import full_oryon
+    from oryon_tpu_torch.models.pointdsc import PointDSC
+    gen = torch.Generator().manual_seed(0)
+    model = random_init_(full_oryon(quant="int8"), gen)
+    return model, random_init_(PointDSC(), gen)
+
+
+def _predictor(model, pointdsc, mesh=None):
+    from oryon_tpu_torch.infer import OryonPredictor
+    return OryonPredictor(model, pointdsc, device=DEVICE, batch_size=8, img_size=(224, 224),
+                          depth_hw=(480, 640), solver="pointdsc", mesh=mesh)
+
+
+def _dp2_rank(torch, rank, pm):
+    """mesh.data=2: 3 training steps at B=32 (16 a rank) and a served batch
+    of 8 (4 a rank); rank 0 then runs both on one device, the other rank
+    waiting at a barrier."""
+    mesh = pm.make_mesh(2, 1)
+    model = _full_train_model(torch, 21)
+    pm.place_params(model, mesh)
+    init = _trainable(model)
+    batches = _train_batches(torch, model, TRAIN_BATCH, range(30, 30 + DP2_STEPS))
+    (losses, grad, secs), counts = _counted(
+        torch, lambda: _steps(torch, model, init, batches, mesh))
+    out = {"losses": losses, "step_ms": [1e3 * s for s in secs],
+           "train_counts": {k: counts[k] for k in ("k1", "k2")}}
+    if rank == 0:
+        ref_losses, ref_grad, ref_secs = _steps(torch, model, init, batches)
+        out.update(ref_losses=ref_losses, ref_step_ms=[1e3 * s for s in ref_secs],
+                   grad_cos=_cos(torch, grad, ref_grad))
+    pm.barrier()
+    del model, batches, init
+    torch.cuda.empty_cache()
+
+    smodel, pointdsc = _serving_model(torch)
+    pred = _predictor(smodel, pointdsc, mesh)
+    reqs = _requests(np.random.RandomState(4), 8, ["mug", "laptop"])
+    results, counts = _counted(torch, lambda: pred.predict(reqs, return_masks=True))
+    out["serve_counts"] = {k: counts[k] for k in ("k1", "k2")}
+    out["serve_ms"] = 1e3 * _warm_times(torch, pred, reqs, TIMED_BATCHES)[0]
+    # the batch program over the mesh, with the draws of one generator
+    batch, text = pred._build_batch(reqs)
+    got = pred._run(batch, text, generator=torch.Generator(device=DEVICE).manual_seed(9))
+    if rank == 0:
+        ref = _predictor(smodel, pointdsc)
+        out["serve"] = _serve_compare(torch, results, ref.predict(reqs, return_masks=True))
+        out["ref_serve_ms"] = 1e3 * _warm_times(torch, ref, reqs, TIMED_BATCHES)[0]
+        out["halves"] = _halves_compare(torch, ref, batch, text, got)
+    pm.barrier()
+    return out
+
+
+def _halves_compare(torch, ref, batch, text, got) -> dict:
+    """One device runs each rank's 4 pairs as one batch, with the rows of the
+    same generator's draws for the batch of 8: the outputs gathered from the
+    two ranks must be these, bitwise (the kernels see the ranks' shapes)."""
+    from oryon_tpu_torch.parallel.mesh import take_rows
+    B = batch.corrs.shape[0]
+    parts = []
+    for rows in (np.arange(B // 2), np.arange(B // 2, B)):
+        parts.append(ref._run(take_rows(batch, rows, B), take_rows(text, rows, B),
+                              generator=torch.Generator(device=DEVICE).manual_seed(9),
+                              rows=(B, rows)))
+    same = {f: bool(torch.equal(getattr(got, f), torch.cat([getattr(p, f) for p in parts])))
+            for f in ("mask_a", "mask_q", "corrs", "corr_valid", "n_corrs", "pred_rel_pose")}
+    return same
+
+
+def _tp2_rank(torch, rank, pm):
+    """mesh.model=2 at full width, int8: the towers sharded, one served batch
+    of 8 and the vision tower's output; rank 0 then serves the unsharded
+    model."""
+    import copy
+
+    from oryon_tpu_torch.parallel.tp import shard_params_tp
+    mesh = pm.make_mesh(1, 2)
+    model, pointdsc = _serving_model(torch)
+    ref_model = copy.deepcopy(model) if rank == 0 else None
+    shard_params_tp(model, mesh)
+    pred = _predictor(model, pointdsc, mesh)
+    reqs = _requests(np.random.RandomState(4), 8, ["mug", "laptop"])
+    results, counts = _counted(torch, lambda: pred.predict(reqs, return_masks=True))
+    out = {"serve_counts": {k: counts[k] for k in ("k1", "k2")},
+           "serve_ms": 1e3 * _warm_times(torch, pred, reqs, TIMED_BATCHES)[0]}
+    x = torch.rand(4, 336, 336, 3, generator=torch.Generator().manual_seed(5)).to(DEVICE)
+    batch, text = pred._build_batch(reqs)
+    with torch.inference_mode():
+        feats = model.vlm_visual(x).float()
+        fwd = model(batch.anchor.rgb, batch.query.rgb, None, text)
+    if rank == 0:
+        ref = _predictor(ref_model, pointdsc)
+        with torch.inference_mode():
+            out["tower_cos"] = torch.nn.functional.cosine_similarity(
+                feats.flatten(1), ref.model.vlm_visual(x).float().flatten(1)).min().item()
+            ref_fwd = ref.model(batch.anchor.rgb, batch.query.rgb, None, text)
+        out["featmap_cos"] = min(
+            torch.nn.functional.cosine_similarity(a.float().flatten(1), b.float().flatten(1))
+            .min().item() for a, b in zip(fwd[:2], ref_fwd[:2]))
+        out["logit_err"] = max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(fwd[2:], ref_fwd[2:]))
+        out["serve"] = _serve_compare(torch, results, ref.predict(reqs, return_masks=True))
+    pm.barrier()
+    return out
+
+
+def _mp2_rank(rank, world, tmp):
+    """One of the two ranks of dp2 and tp2 (gloo, both on cuda:0); writes
+    its results, or the error, to ``tmp``."""
+    import traceback
+
+    import torch
+    from oryon_tpu_torch.parallel import mesh as pm
+    pm.init_distributed("cuda", "gloo", f"file://{tmp}/mp2.store", rank, world, local_rank=0)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["dp2"] = _dp2_rank(torch, rank, pm)
+        out["dp2"]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["tp2"] = _tp2_rank(torch, rank, pm)
+        out["tp2"]["s"] = time.perf_counter() - t0
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        torch.save(out, os.path.join(tmp, f"mp2_rank{rank}.pt"))
+        pm.shutdown()
+
+
+def run_mp2(torch, tmp) -> list:
+    """Spawn the two ranks; their results (a failed or late rank raises)."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_mp2_rank, args=(2, tmp), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + MP2_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.perf_counter() < deadline, f"two-rank phases over {MP2_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    ranks = [torch.load(os.path.join(tmp, f"mp2_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    for r, res in enumerate(ranks):
+        check("error" not in res, f"rank {r}: {res.get('error')}")
+    return ranks
+
+
+def _counts_txt(ranks, key, what) -> str:
+    return "; ".join(f"rank {r} K1 {res[key][what]['k1']} K2 {res[key][what]['k2']}"
+                     for r, res in enumerate(ranks))
+
+
+@phase("dp2")
+def phase_dp2(torch, ranks, layers, smi_line):
+    r0 = ranks[0]["dp2"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"]))
+    check(all(res["dp2"]["losses"] == r0["losses"] for res in ranks),
+          "the ranks logged different losses")
+    check(rel < 1e-3, f"losses {r0['losses']} vs one device {r0['ref_losses']}")
+    check(r0["grad_cos"] > 0.9999, f"fusion/decoder gradient cosine {r0['grad_cos']:.6f}")
+    for r, res in enumerate(ranks):
+        c = res["dp2"]
+        check(c["train_counts"]["k1"] == layers * DP2_STEPS,
+              f"rank {r}: K1 ran {c['train_counts']['k1']} times in {DP2_STEPS} steps")
+        check(c["serve_counts"] == {"k1": layers, "k2": 1},
+              f"rank {r}: serving launches {c['serve_counts']}")
+    check(all(r0["halves"].values()),
+          f"the two ranks' outputs differ from one device's runs of their pairs: {r0['halves']}")
+    sv = r0["serve"]
+    check(sv["masks_same"] > 0.99, f"served masks agree on {sv['masks_same']:.6f} of pixels "
+                                   f"with one device's batch of 8")
+    step = float(np.median(r0["step_ms"][1:]))
+    ref_step = float(np.median(r0["ref_step_ms"][1:]))
+    return {"line": (
+        f"gloo, 2 ranks on the one card; {DP2_STEPS} steps at B={TRAIN_BATCH} "
+        f"({TRAIN_BATCH // 2} a rank): losses {', '.join(f'{v:.5f}' for v in r0['losses'])} "
+        f"vs one device {', '.join(f'{v:.5f}' for v in r0['ref_losses'])} (max rel "
+        f"{rel:.2e}), first fusion/decoder gradient cosine {r0['grad_cos']:.7f}; "
+        f"{_counts_txt(ranks, 'dp2', 'train_counts')}; step {step:.1f} ms (rank 0, median "
+        f"after the first) vs one device {ref_step:.1f} ms; serving B=8 (4 a rank): masks, "
+        f"correspondences and poses bitwise those of one device on each rank's 4 pairs with "
+        f"the same draws; against one device's batch of 8 masks agree on "
+        f"{sv['masks_same']:.6f} of pixels, poses {sv['rot']:.2e} rad / {sv['trans']:.2e} m "
+        f"apart (random weights: a pose is not a continuous function of the features); "
+        f"{_counts_txt(ranks, 'dp2', 'serve_counts')}; warm batch {r0['serve_ms']:.1f} ms vs "
+        f"one device {r0['ref_serve_ms']:.1f} ms; {ranks[0]['dp2']['s']:.1f} s on {smi_line}")}
+
+
+@phase("tp2")
+def phase_tp2(torch, ranks, layers, smi_line):
+    r0 = ranks[0]["tp2"]
+    check(r0["tower_cos"] > 0.999, f"sharded vision tower cosine {r0['tower_cos']:.6f}")
+    check(r0["featmap_cos"] > 0.999, f"sharded model's featmap cosine {r0['featmap_cos']:.6f}")
+    for r, res in enumerate(ranks):
+        check(res["tp2"]["serve_counts"] == {"k1": layers, "k2": 1},
+              f"rank {r}: serving launches {res['tp2']['serve_counts']}")
+    sv = r0["serve"]
+    check(sv["masks_same"] > 0.99, f"served masks agree on {sv['masks_same']:.6f} of pixels")
+    return {"line": (
+        f"gloo, mesh.model=2 on the one card, full width, int8: vision tower cosine "
+        f"{r0['tower_cos']:.6f} to the unsharded one, featmaps {r0['featmap_cos']:.6f}, mask "
+        f"logits within {r0['logit_err']:.3e}; serving B=8: masks agree on "
+        f"{sv['masks_same']:.6f} of pixels, correspondence counts "
+        f"{'equal' if sv['n_corrs_same'] else 'differ'}, poses {sv['rot']:.2e} rad / "
+        f"{sv['trans']:.2e} m from the unsharded model's; "
+        f"{_counts_txt(ranks, 'tp2', 'serve_counts')} (K1 at 8 heads a rank); warm batch "
+        f"{r0['serve_ms']:.1f} ms; {ranks[0]['tp2']['s']:.1f} s on {smi_line}")}
+
+
+
+def _cli_losses(root, exp_name) -> list:
+    path = os.path.join(root, "exp", exp_name, "logs", f"{exp_name}.metrics.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    return [r["train_loss/total"] for r in rows if "step" in r and "train_loss/total" in r]
+
+
+@phase("cards")
+def phase_cards(torch, n, tmp, smi_line):
+    """``--cards N``: the CLIs over N cards of this host (NCCL, torchrun),
+    against one card: one epoch of training at full width (B=32 over the
+    64-pair tree, RANSAC validation on the 16-pair tree) with
+    ``mesh.data=N`` and with ``mesh.data=N/2 mesh.model=2``, then an
+    evaluation of each checkpoint the same way; the logged losses within
+    rel 1e-3 of one card's, every CSV with the split's 16 rows."""
+    check(torch.cuda.device_count() >= n, f"--cards {n}: {torch.cuda.device_count()} cards")
+    write_real275_tree(os.path.join(tmp, "nocs_smoke"), np.random.RandomState(3), "cpu")
+    write_shapenet6d_tree(os.path.join(tmp, "shapenet6d_smoke"), np.random.RandomState(4),
+                          TRAIN_PAIRS)
+    absent = [f"pretrained.{k}={tmp}/no_{k}" for k in ("clip", "swin", "catseg", "vocabulary")]
+    common = [f"dataset.root={tmp}", "dataset.test.name=nocs_smoke",
+              f"dataset.test.split={EVAL_SPLIT}", "model.size=full", "use_seed=true",
+              f"exp_root={os.path.join(tmp, 'exp')}", f"pretrained.pointdsc={tmp}/no_pd",
+              *absent]
+    train = [*common, "dataset.train.name=shapenet6d_smoke", f"dataset.train.split={TRAIN_SPLIT}",
+             f"dataset.batch_size={TRAIN_BATCH}", "training.n_epochs=1", "training.freq_save=1",
+             "training.freq_valid=1", "seed=7"]
+    test = [*common, f"dataset.batch_size={EVAL_BATCH}", "test.solver=ransac",
+            "compute_vsd=false", "eval.ckpt=last", "seed=5"]
+    meshes = {"one": [], "dp": [f"mesh.data={n}"], "dp_tp": [f"mesh.data={n // 2}", "mesh.model=2"]}
+    here = os.path.dirname(os.path.abspath(__file__))
+    secs = {}
+    for script, args in (("run_train_torch.py", train), ("run_test_torch.py", test)):
+        for name, mesh in meshes.items():
+            launch = ([sys.executable] if name == "one" else
+                      [sys.executable, "-m", "torch.distributed.run", f"--nproc-per-node={n}"])
+            t0 = time.perf_counter()
+            done = subprocess.run([*launch, script, *args, f"exp_name={name}", *mesh], cwd=here,
+                                  capture_output=True, text=True, timeout=600)
+            secs[f"{script.split("_")[1]} {name}"] = time.perf_counter() - t0
+            check(done.returncode == 0, f"{script} {' '.join(mesh)}: exit {done.returncode}: "
+                                        f"{done.stderr[-2000:]}")
+    losses = {name: _cli_losses(tmp, name) for name in meshes}
+    rel = {name: max(abs(a - b) / abs(b) for a, b in zip(losses[name], losses["one"]))
+           for name in ("dp", "dp_tp")}
+    for name, r in rel.items():
+        check(len(losses[name]) == len(losses["one"]) > 0 and r < 1e-3,
+              f"{name}: logged losses {losses[name]} vs one card's {losses['one']}")
+    for name in meshes:
+        (csv,) = [f for f in os.listdir(os.path.join(tmp, "exp", name, "results"))
+                  if f.endswith(".csv")]
+        with open(os.path.join(tmp, "exp", name, "results", csv)) as f:
+            check(len(f.read().splitlines()) == 2 * len(EVAL_PAIRS),
+                  f"{name}: CSV rows != {2 * len(EVAL_PAIRS)}")
+    return {"line": (
+        f"{n} cards over NCCL, the CLIs at full width: training (B={TRAIN_BATCH}, one epoch, "
+        f"validation) with mesh.data={n} and mesh.data={n // 2} mesh.model=2: logged loss "
+        f"{losses['one'][0]:.6f} on one card, rel {rel['dp']:.1e} and {rel['dp_tp']:.1e} from "
+        f"it; evaluation of each checkpoint the same way: {2 * len(EVAL_PAIRS)} CSV rows each; "
+        f"command wall seconds (start-up included) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f"; {smi_line}")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="only the device, build and kernel phases")
+    ap.add_argument("--cards", type=int, default=1, metavar="N",
+                    help="with N > 1: device, build, the kernel phases and the CLIs over N "
+                         "cards (torchrun, NCCL) only")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one warm batch (torch.profiler) into DIR")
     args = ap.parse_args(argv)
@@ -2248,6 +2720,13 @@ def main(argv=None) -> int:
     measured["k1f32"] = measured["k1"]["f32"]
     if args.kernels:
         return 0
+    if args.cards > 1:
+        tmp = tempfile.mkdtemp(prefix="oryon_cards_")
+        try:
+            phase_cards(torch, args.cards, tmp, dev["smi"])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return 0
     phase_register(torch)
     counts, pred, reqs = phase_serve(torch, TIMED_BATCHES, args.profile)["state"]
     counts.update(phase_serve_optin(torch, pred, reqs, TIMED_BATCHES)["counts"])
@@ -2266,6 +2745,12 @@ def main(argv=None) -> int:
         phase_overfit(torch)
         torch.cuda.empty_cache()
         phase_train_towers(torch, TIMED_LAUNCHES, layers)
+        torch.cuda.empty_cache()
+        phase_mesh1(torch, tmp, dev["smi"])
+        torch.cuda.empty_cache()
+        ranks = run_mp2(torch, tmp)
+        phase_dp2(torch, ranks, layers, dev["smi"])
+        phase_tp2(torch, ranks, layers, dev["smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_bench(torch, dev["smi"], layers)

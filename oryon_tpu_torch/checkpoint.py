@@ -17,6 +17,13 @@ An entry is a directory that holds one of two files:
 
 The JAX package writes its entries with orbax, which the port does not
 read: such a directory holds neither file and raises, naming the export.
+
+Several GPUs (``parallel/``): every rank calls save and restore.  A save
+gathers the tensor-parallel shards of the parameters and of the optimizer's
+moments (``parallel.tp.full_state_dict``), so the entry holds the unsharded
+state in the same format; rank 0 writes it and the other ranks wait at a
+barrier.  A restore reads the entry on every rank and cuts it to the rank's
+shards.  ``init_experiment`` writes on rank 0 only.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ import torch
 
 from oryon_tpu_torch.config import Config, save_config
 from oryon_tpu_torch.models.convert import from_jax_params, load_flax_npz
+from oryon_tpu_torch.parallel.mesh import barrier, is_rank0
+from oryon_tpu_torch.parallel.tp import (full_optimizer_state, full_state_dict,
+                                         local_optimizer_state, local_state_dict)
 
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.npz"
@@ -54,27 +64,33 @@ def init_experiment(cfg: Config, snapshot: bool = False) -> None:
     and serving leave an existing file alone, so their overrides never
     replace the record of how the experiment was trained; the file is still
     written when absent."""
-    for d in (ckpt_dir(cfg), results_dir(cfg), logs_dir(cfg)):
-        os.makedirs(d, exist_ok=True)
-    path = os.path.join(cfg.exp_root, cfg.exp_name, "config.yaml")
-    if snapshot or not os.path.exists(path):
-        save_config(cfg, path)
+    if is_rank0():
+        for d in (ckpt_dir(cfg), results_dir(cfg), logs_dir(cfg)):
+            os.makedirs(d, exist_ok=True)
+        path = os.path.join(cfg.exp_root, cfg.exp_name, "config.yaml")
+        if snapshot or not os.path.exists(path):
+            save_config(cfg, path)
+    barrier()
 
 
 def save_checkpoint(cfg: Config, epoch: int, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     step: int = 0) -> str:
     """Write ``models/epoch=NNNN/state.pt``; an entry of the same epoch is
-    replaced.  Returns the entry's path."""
+    replaced.  Returns the entry's path.  Every rank of a job calls it (the
+    shards are gathered); rank 0 writes."""
     path = os.path.abspath(os.path.join(ckpt_dir(cfg), f"epoch={epoch:04d}"))
-    tmp = f"{path}.tmp-{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save({"model": model.state_dict(),
-                "optimizer": None if optimizer is None else optimizer.state_dict(),
-                "step": int(step)}, os.path.join(tmp, STATE_FILE))
-    shutil.rmtree(path, ignore_errors=True)
-    os.rename(tmp, path)
+    state = {"model": full_state_dict(model),
+             "optimizer": None if optimizer is None else full_optimizer_state(optimizer, model),
+             "step": int(step)}
+    if is_rank0():
+        tmp = f"{path}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state, os.path.join(tmp, STATE_FILE))
+        shutil.rmtree(path, ignore_errors=True)
+        os.rename(tmp, path)
+    barrier()
     return path
 
 
@@ -112,7 +128,7 @@ def _read_entry(path: str) -> dict:
 
 def _load_model(model: torch.nn.Module, state_dict: dict, what: str) -> None:
     try:
-        model.load_state_dict(state_dict, strict=True)
+        model.load_state_dict(local_state_dict(model, state_dict), strict=True)
     except RuntimeError as e:
         raise ValueError(f"{what} (different model.size/topology?): {e}") from None
 
@@ -141,7 +157,7 @@ def restore_checkpoint(cfg: Config, model: torch.nn.Module, which: str = "last",
     entry = _read_entry(path)
     _load_model(model, entry["model"], f"param tree mismatch vs {path}")
     if optimizer is not None and entry["optimizer"] is not None:
-        optimizer.load_state_dict(entry["optimizer"])
+        optimizer.load_state_dict(local_optimizer_state(optimizer, model, entry["optimizer"]))
     return epoch, int(entry["step"])
 
 

@@ -14,6 +14,13 @@ Invariants across processes: the per-epoch shuffle seed comes from a
 process-independent counter (base_seed + epoch), not from the dataset's
 RNG, and with ``drop_last`` every process yields the same number of
 batches.
+
+Data-parallel ranks (``rows``): every rank walks the single-device order of
+the same seed and reads every pair of each global batch, so the dataset's
+host draws (prompt synsets, correspondence sampling) follow one stream, and
+collates only its rows (``parallel.mesh.batch_rows``): n ranks train on
+exactly the batches of one device.  Reading the other ranks' pairs is host
+work that one device would also do; it is not split.
 """
 from __future__ import annotations
 
@@ -30,8 +37,10 @@ class PrefetchLoader:
                  drop_last: bool = False, prefetch: int = 2,
                  process_index: int = 0, process_count: int = 1,
                  sort_by_class: bool = False, seed: int = None,
-                 train: bool = False):
+                 train: bool = False, rows=None):
         self.dataset = dataset
+        # rows: this data rank's rows of each global batch (None: all)
+        self.rows = None if rows is None else [int(i) for i in rows]
         self.batch_size = batch_size
         # train=True collates the training subset only (no depth or pose);
         # otherwise the worker builds its tensors in inference mode
@@ -102,6 +111,8 @@ class PrefetchLoader:
                                  for i in idx]
                         for p in pairs[n_real:]:
                             p["valid"] = 0.0   # final-batch pads
+                        if self.rows is not None:
+                            pairs = [pairs[i] for i in self.rows]
                         out_q.put(self.dataset.collate(pairs, train=self.train))
             except BaseException as e:     # raised again on the caller's thread
                 failure.append(e)

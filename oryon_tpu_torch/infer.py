@@ -10,6 +10,13 @@ the attention kernels (``model.attn_impl=...``), merges the pretrained
 towers and restores the experiment's checkpoint (``eval.ckpt``);
 ``load_view`` reads a view from files; ``run_infer_torch.py`` is the CLI.
 
+Several GPUs (one process per device, ``torchrun``): ``from_config`` takes
+the mesh of ``cfg.mesh`` by the JAX engine's policy (``parallel.serving_mesh``)
+and, with ``mesh.model`` above 1, shards the towers over it
+(``parallel.tp.shard_params_tp``).  Every rank calls ``predict`` with the
+same requests; each computes its rows of a batch and every rank returns the
+same answers.
+
 Request dict: {"anchor": {"rgb": [H,W,3] u8, "depth": [Ho,Wo] mm,
 "camera": K, "mask": optional [H,W] u8}, "query": {...}, "prompt": str}.
 Result dict: {"pose": 4x4 T_anchor->query (metres), "n_corrs": int,
@@ -34,8 +41,10 @@ from oryon_tpu_torch.models.oryon import (build_model, resolve_attn_impl,
 from oryon_tpu_torch.models.pretrained import load_pretrained_params
 from oryon_tpu_torch.models.tokenizer import ClipTokenizer
 from oryon_tpu_torch.ops.matching import MatchParams
-from oryon_tpu_torch.pipeline import (PipelineConfig, build_pointdsc_solver,
-                                      make_run_fn, pointdsc_weights_available)
+from oryon_tpu_torch.parallel.mesh import place_params, serving_mesh
+from oryon_tpu_torch.parallel.tp import shard_params_tp
+from oryon_tpu_torch.pipeline import (PipelineConfig, build_pointdsc_solver, make_run_fn,
+                                      pointdsc_weights_available, split_over_data)
 
 
 def _load_array(path: str) -> np.ndarray:
@@ -141,10 +150,13 @@ class OryonPredictor:
                  n_corrs: int = 500, dist_th: float = 0.25,
                  mask_threshold: float = 0.5, vocabulary: str = "",
                  seed: int = 0, tokenize_fn=None, icp_refine=None,
-                 icp_points=None, icp_iters=None, icp_trim=None):
+                 icp_points=None, icp_iters=None, icp_trim=None, mesh=None):
         full_precision_matmuls()
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            place_params(self.model, mesh)
         self.pointdsc = None if pointdsc is None else pointdsc.to(self.device).eval()
         self.B = int(batch_size)
         self.img_size = tuple(img_size)
@@ -170,7 +182,7 @@ class OryonPredictor:
             icp_iters=tc.icp_iters if icp_iters is None else int(icp_iters),
             icp_trim=tc.icp_trim if icp_trim is None else float(icp_trim),
             match=MatchParams(src_capacity=5120, max_corrs=n_corrs, dist_th=dist_th))
-        self._run = make_run_fn(self.model, cfg, self.pointdsc)
+        self._run = split_over_data(make_run_fn(self.model, cfg, self.pointdsc), mesh)
         self._text_cache: Dict[str, torch.Tensor] = {}
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._max_corrs = n_corrs
@@ -209,8 +221,13 @@ class OryonPredictor:
                 print("WARNING: PointDSC snapshot absent; serving with "
                       "RANSAC registration")
                 solver = "ransac"
-        return cls(model, pointdsc, device=device,
-                   batch_size=int(batch_size or cfg.dataset.batch_size),
+        # several GPUs: each request batch split over the data axis
+        # (replicated params; optional TP axis), as run_test_torch.py does
+        B = int(batch_size or cfg.dataset.batch_size)
+        mesh = serving_mesh(cfg.mesh.data, cfg.mesh.model, B, label="serving")
+        if mesh is not None and cfg.mesh.model > 1:
+            shard_params_tp(model, mesh)
+        return cls(model, pointdsc, device=device, batch_size=B, mesh=mesh,
                    img_size=cfg.dataset.img_size, depth_hw=depth_hw,
                    mask_source=cfg.test.mask, solver=solver,
                    n_corrs=cfg.test.n_corrs, dist_th=cfg.test.dist_th,

@@ -31,6 +31,7 @@ from oryon_tpu_torch.eval.metrics import mask_iou
 from oryon_tpu_torch.geometry.pcd import unit
 from oryon_tpu_torch.losses.mask_losses import MASK_LOSSES
 from oryon_tpu_torch.ops.resize import resize_mask_nearest
+from oryon_tpu_torch.parallel.mesh import all_reduce_, group_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,9 +120,18 @@ def feature_loss(
     generator: Optional[torch.Generator] = None,
     cfg: FeatureLossConfig = FeatureLossConfig(),
     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    group=None,
 ) -> LossOutputs:
     """The loss of one batch.  ``draws``: the (anchor, query) indices of
-    ``draw_indices``; drawn from ``generator`` when not given."""
+    ``draw_indices``; drawn from ``generator`` when not given.
+
+    ``group``: the data group of a batch split over ranks (this rank holds
+    an equal share of its pairs).  The loss is then this rank's share of the
+    global batch's loss, so that the shares sum to it over the group: the
+    correspondence losses are normalised by the global count of valid pairs
+    (a mean of the ranks' means would weigh a pair by how many valid pairs
+    share its rank) and the mask loss, a plain mean, is divided by the
+    group's size."""
     B, H, W, D = featmap_a.shape
     dev = featmap_a.device
     # input to featmap resolution by f32 ratios, then a per-axis clamp (rows
@@ -159,7 +169,10 @@ def feature_loss(
     cw = corr_valid.float()
     cw_sum = torch.clamp(torch.sum(cw, dim=1), min=1.0)
     sv = torch.as_tensor(sample_valid, device=dev).float()
-    sv_sum = torch.clamp(torch.sum(sv), min=1.0)
+    sv_sum = torch.sum(sv)
+    if group is not None:
+        sv_sum = all_reduce_(sv_sum.clone(), group)
+    sv_sum = torch.clamp(sv_sum, min=1.0)
 
     def reduce(per_corr):
         per_sample = torch.sum(per_corr * cw, dim=1) / cw_sum
@@ -172,6 +185,8 @@ def feature_loss(
     gt_a = resize_mask_nearest(gt_mask_a, (H, W)).float()
     gt_q = resize_mask_nearest(gt_mask_q, (H, W)).float()
     mask_loss = 0.5 * (mask_fn(mask_logits_a, gt_a) + mask_fn(mask_logits_q, gt_q))
+    if group is not None:
+        mask_loss = mask_loss / group_size(group)
 
     with torch.no_grad():
         pred_a = (torch.sigmoid(mask_logits_a) > cfg.mask_threshold).int()

@@ -102,11 +102,18 @@ class MultiHeadAttention(nn.Module):
         self.in_proj = Dense(width, 3 * width, dtype)
         self.out_proj = Dense(width, width, dtype)
         self.heads, self.dtype, self.attn_impl = heads, dtype, attn_impl
+        self.head_dim = width // heads
+
+    def shard_heads(self, n: int, r: int, group) -> None:
+        """Keep this rank's heads/n heads (``parallel.tp.shard_params_tp``
+        made ``in_proj`` column-parallel with their q, k and v rows)."""
+        self.heads //= n
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 seg: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, L, D = x.shape
-        hd = D // self.heads
+        B, L, _ = x.shape
+        hd = self.head_dim
+        D = self.heads * hd      # this rank's heads: all of them unless sharded
         qkv = self.in_proj(x)
         if self.attn_impl in ("fused", "fused_i8qk"):
             if mask is not None:

@@ -10,6 +10,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from oryon_tpu_torch.parallel.mesh import (copy_to_group, group_rank, group_size,
+                                           reduce_from_group, scatter_to_group,
+                                           shard_index)
+
 
 class Dense(nn.Module):
     """y = x W^T + b in ``dtype`` (torch Linear layout: weight [out, in])."""
@@ -24,6 +28,65 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class ColumnParallelDense(Dense):
+    """Tensor-parallel ``Dense`` whose output features are split over
+    ``group`` (Megatron's column-parallel layer): this rank holds rows
+    ``shard_index(out, n, r, parts)`` of the weight and the bias, and
+    computes those output features from the whole (replicated) input.  A
+    packed q | k | v projection has ``parts=3``, so that the rank holds the
+    q, k and v rows of its own heads, packed [q_r | k_r | v_r]."""
+
+    tp_dim = 0
+
+    def __init__(self, dense: Dense, group, parts: int = 1):
+        nn.Module.__init__(self)
+        n, r = group_size(group), group_rank(group)
+        self.full_features, self.parts = dense.weight.shape[0], parts
+        idx = shard_index(self.full_features, n, r, parts)
+        self.weight = nn.Parameter(dense.weight.detach()[idx].clone())
+        self.bias = (None if dense.bias is None
+                     else nn.Parameter(dense.bias.detach()[idx].clone()))
+        self.dtype, self.group = dense.dtype, group
+
+    def shard_index(self, r: int) -> torch.Tensor:
+        return shard_index(self.full_features, group_size(self.group), r, self.parts)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(copy_to_group(x, self.group))
+
+
+class RowParallelDense(Dense):
+    """Tensor-parallel ``Dense`` whose input features are split over
+    ``group`` (Megatron's row-parallel layer): this rank holds its 1/n of
+    the weight's input columns, the partial products are summed over the
+    group and the whole bias is added once.  ``input_is_parallel=False``
+    takes a replicated input and slices this rank's part of it first."""
+
+    tp_dim = 1
+    parts = 1
+
+    def __init__(self, dense: Dense, group, input_is_parallel: bool = True):
+        nn.Module.__init__(self)
+        n, r = group_size(group), group_rank(group)
+        self.full_features = dense.weight.shape[1]
+        self.weight = nn.Parameter(
+            dense.weight.detach()[:, shard_index(self.full_features, n, r)].clone())
+        self.bias = dense.bias
+        self.dtype, self.group = dense.dtype, group
+        self.input_is_parallel = input_is_parallel
+
+    def shard_index(self, r: int) -> torch.Tensor:
+        return shard_index(self.full_features, group_size(self.group), r)
+
+    def local_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.input_is_parallel else scatter_to_group(x, self.group)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(self.local_input(x).to(self.dtype), self.weight.to(self.dtype))
+        y = reduce_from_group(y, self.group)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Conv(nn.Module):

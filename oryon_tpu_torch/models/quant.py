@@ -16,14 +16,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from oryon_tpu_torch.models.layers import Dense
+from oryon_tpu_torch.models.layers import ColumnParallelDense, Dense, RowParallelDense
+from oryon_tpu_torch.parallel.mesh import all_reduce_
 
 
-def int8_quantize(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def int8_quantize(x: torch.Tensor, dim: int,
+                  amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric absmax quantisation along ``dim`` (kept).  Returns (int8
-    values, f32 scale) with x ~= values * scale."""
+    values, f32 scale) with x ~= values * scale.  ``amax``: the absmax to
+    scale by (keepdim shape), when it is taken over more than ``x`` holds."""
     xf = x.float()
-    amax = torch.amax(torch.abs(xf), dim=dim, keepdim=True)
+    if amax is None:
+        amax = torch.amax(torch.abs(xf), dim=dim, keepdim=True)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.round(xf / scale)
     return torch.clamp(q, -127, 127).to(torch.int8), scale
@@ -55,3 +59,53 @@ class QuantDense(Dense):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return int8_dense(x, self.weight, self.bias, dtype=self.dtype)
 
+
+
+def int8_dense_row_parallel(x: torch.Tensor, weight: torch.Tensor,
+                            weight_amax: torch.Tensor, bias: Optional[torch.Tensor],
+                            group, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``int8_dense`` of a row-parallel layer: x [..., in/n] and weight
+    [out, in/n] hold this rank's 1/n of the input features.  Exact against
+    the unsharded product: the per-token activation scale is the absmax of
+    the whole row (an all-reduce MAX of the parts' absmax), the weight scale
+    is that of the whole weight row (``weight_amax`` [out, 1]), and the
+    int32 partial sums are summed over ``group`` before dequantising."""
+    w8, w_scale = int8_quantize(weight, dim=1, amax=weight_amax)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1]).float()
+    amax = all_reduce_(torch.amax(torch.abs(xf), dim=-1, keepdim=True), group, "max")
+    x8, a_scale = int8_quantize(xf, dim=-1, amax=amax)
+    acc = all_reduce_(torch._int_mm(x8, w8.t()), group)
+    out = acc.float() * (a_scale * w_scale.reshape(1, -1))
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(dtype).reshape(*lead, -1)
+
+
+class QuantColumnParallelDense(ColumnParallelDense):
+    """Column-parallel ``QuantDense``: whole input rows and whole weight rows
+    on every rank, so the scales are the unsharded ones and no collective
+    is needed."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_dense(x, self.weight, self.bias, dtype=self.dtype)
+
+
+class QuantRowParallelDense(RowParallelDense):
+    """Row-parallel ``QuantDense`` (``int8_dense_row_parallel``).  The
+    absmax of each whole weight row is taken over the group when the layer
+    first runs and again whenever its weight shard changed (a restore)."""
+
+    _amax = None
+    _amax_version = None
+
+    def _weight_amax(self) -> torch.Tensor:
+        if self._amax is None or self._amax_version != self.weight._version:
+            amax = torch.amax(torch.abs(self.weight.detach().float()), dim=1, keepdim=True)
+            self._amax = all_reduce_(amax, self.group, "max")
+            self._amax_version = self.weight._version
+        return self._amax
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_dense_row_parallel(self.local_input(x), self.weight, self._weight_amax(),
+                                       self.bias, self.group, dtype=self.dtype)

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from oryon_tpu_torch.models.layers import Conv, LayerNorm, dense_cls
 from oryon_tpu_torch.ops.cuda.swin_attn import (band_window_attention,
                                                 packed_window_attention)
+from oryon_tpu_torch.parallel.mesh import copy_to_group
 
 ATTN_IMPLS = ("einsum", "pallas", "band", "noattn")
 
@@ -124,11 +125,25 @@ class WindowAttention(nn.Module):
             persistent=False)
         self.heads, self.window, self.dtype = heads, window, dtype
         self.attn_impl = attn_impl
+        self.head_dim = dim // heads
+        self.head_offset, self.tp_group = 0, None
+
+    def shard_heads(self, n: int, r: int, group) -> None:
+        """Keep this rank's heads/n heads (``parallel.tp.shard_params_tp``
+        made ``qkv`` column-parallel with their q, k and v rows); the
+        replicated bias table is read at their columns."""
+        self.heads //= n
+        self.head_offset, self.tp_group = r * self.heads, group
 
     def _bias(self) -> torch.Tensor:
         N = self.window * self.window
-        return self.relative_position_bias_table[self.rel_index].reshape(
-            N, N, self.heads).permute(2, 0, 1)
+        table = self.relative_position_bias_table
+        if self.tp_group is not None:
+            # each rank reads its heads' columns: the replicated table's
+            # gradient is the sum of the ranks' parts
+            table = copy_to_group(table, self.tp_group)
+        table = table[:, self.head_offset: self.head_offset + self.heads]
+        return table[self.rel_index].reshape(N, N, self.heads).permute(2, 0, 1)
 
     def _comb(self, mask: Optional[torch.Tensor], nw: int) -> torch.Tensor:
         """[nw, heads, N, N] f32: relative-position bias + shift mask."""
@@ -143,7 +158,7 @@ class WindowAttention(nn.Module):
         padded/rolled map [B, Hp, Wp, C]; mask: [num_windows, w*w, w*w] or
         None; nw: windows per image (the pallas path needs it when mask is
         None)."""
-        hd = x.shape[-1] // self.heads
+        hd = self.head_dim
         qkv = self.qkv(x)
         if self.attn_impl == "band":
             Hp, Wp = x.shape[1:3]

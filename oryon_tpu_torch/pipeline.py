@@ -1,8 +1,8 @@
 """Serving pipeline: forward -> match -> lift -> solve -> refine, batched.
 
-Counterpart of ``make_run_fn`` in ``oryon_tpu/pipeline.py``; its
-``build_pipeline`` (jit plus binding the parameters) has no counterpart,
-since PyTorch runs eagerly and the module holds its weights.  The JAX
+Counterpart of ``make_run_fn`` and ``build_pipeline`` in
+``oryon_tpu/pipeline.py``; PyTorch runs eagerly and the module holds its
+weights, so ``build_pipeline`` only adds the split over several GPUs.  The JAX
 program ``vmap``s the per-pair stages; here every stage takes the whole batch:
 matching is one launch of the masked-argmin kernel for all pairs, and the
 solvers are batched.  The packed output has the JAX layout, [B, 39] f32:
@@ -12,6 +12,11 @@ inlier_rate | feat_ratio.
 Randomness: PyTorch cannot reproduce JAX's random streams, so every random
 input is drawn in one place, ``draw_noise``, and every stage that uses noise
 takes it as an argument.  A test can rebuild the same arrays from JAX keys.
+
+Several GPUs: ``build_pipeline(..., mesh=...)`` splits each batch over the
+mesh's ``data`` ranks, draws the noise of the global batch on every rank
+and keeps the rank's rows, and gathers the outputs, so every rank returns
+the single-device result of the global batch.
 
 The evaluation loop is here too: ``run_test_epoch`` drives a batch program
 over a dataset and registers every pair with an evaluator, writing the
@@ -38,6 +43,8 @@ from oryon_tpu_torch.models.pointdsc import PointDSC, PointDSCConfig
 from oryon_tpu_torch.ops.matching import MatchParams, nn_correspondences, src_capacity
 from oryon_tpu_torch.ops.resize import resize_mask_nearest
 from oryon_tpu_torch.ops.sampling import flat_to_yx, masked_select
+from oryon_tpu_torch.parallel.mesh import gather_outputs, take_rows
+from oryon_tpu_torch.parallel.tp import copy_module
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,7 +252,9 @@ def build_pointdsc_solver(pretrained_dir: str) -> PointDSC:
 def make_run_fn(model: OryonModel, cfg: PipelineConfig,
                 pointdsc: Optional[PointDSC] = None):
     """The eval program: (PairBatch, text_emb, noise | generator) ->
-    PipelineOutputs.  ``noise`` defaults to ``draw_noise(generator, ...)``.
+    PipelineOutputs.  ``noise`` defaults to ``draw_noise(generator, ...)``;
+    with ``rows`` = (global batch size, row indices) the batch is those rows
+    of a global batch and the noise is drawn for the global one and cut.
     ``stage_events``, a list, collects (stage name, CUDA event) pairs at the
     stage boundaries for timing on the card."""
     if cfg.solver == "pointdsc" and pointdsc is None:
@@ -257,7 +266,8 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
     def run(batch: PairBatch, text_emb: Optional[torch.Tensor] = None,
             noise: Optional[Noise] = None,
             generator: Optional[torch.Generator] = None,
-            stage_events: Optional[list] = None) -> PipelineOutputs:
+            stage_events: Optional[list] = None,
+            rows: Optional[Tuple[int, np.ndarray]] = None) -> PipelineOutputs:
         def mark(name):
             if stage_events is not None:
                 ev = torch.cuda.Event(enable_timing=True)
@@ -269,8 +279,13 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
         out = model(A.rgb, Q.rgb, batch.prompt_ids, text_emb)
         mark("forward")
         B, FH, FW, _ = out.featmap_a.shape
-        if noise is None:
+        if noise is None and rows is None:
             noise = draw_noise(generator, cfg, B, (FH, FW), out.featmap_a.device)
+        elif noise is None:
+            # ``batch`` is rows ``rows[1]`` of a global batch of ``rows[0]``:
+            # the global batch's draws, cut to them
+            noise = take_rows(draw_noise(generator, cfg, rows[0], (FH, FW),
+                                         out.featmap_a.device), rows[1], rows[0])
         pred_mask_a = (torch.sigmoid(out.mask_a) > cfg.mask_threshold).to(torch.uint8)
         pred_mask_q = (torch.sigmoid(out.mask_q) > cfg.mask_threshold).to(torch.uint8)
         gt_a = resize_mask_nearest(A.mask, (FH, FW))
@@ -333,6 +348,36 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
 
     return run
 
+
+def build_pipeline(model: OryonModel, cfg: PipelineConfig,
+                   pointdsc: Optional[PointDSC] = None, mesh=None):
+    """The eval program of ``make_run_fn``, split over the ``data`` ranks of
+    ``mesh`` (the counterpart of ``oryon_tpu.pipeline.build_pipeline``).
+    Every rank calls it with the same global batch (and ``text_emb``, noise
+    or generator); each runs its rows and every rank returns the gathered
+    outputs of the whole batch.  Inference has no cross-pair state, so this
+    is the single-device result.  ``mesh=None`` returns ``make_run_fn``'s
+    program."""
+    return split_over_data(make_run_fn(model, cfg, pointdsc), mesh)
+
+
+def split_over_data(run, mesh):
+    """``run`` (a ``make_run_fn`` program) over the data ranks of ``mesh``,
+    as ``build_pipeline`` describes; ``run`` itself when ``mesh`` is None."""
+    if mesh is None:
+        return run
+
+    def wrapped(batch: PairBatch, text_emb: Optional[torch.Tensor] = None,
+                noise: Optional[Noise] = None,
+                generator: Optional[torch.Generator] = None,
+                stage_events: Optional[list] = None) -> PipelineOutputs:
+        B = batch.corrs.shape[0]
+        rows = mesh.batch_rows(B)
+        out = run(take_rows(batch, rows, B), take_rows(text_emb, rows, B),
+                  take_rows(noise, rows, B), generator, stage_events, rows=(B, rows))
+        return gather_outputs(out, mesh)
+
+    return wrapped
 
 
 def _viz_tracked(viz_dir, dataset, batch: PairBatch, out: PipelineOutputs):
@@ -398,9 +443,7 @@ def make_train_text_cache(model: OryonModel):
     repeated as filler); beyond ``TRAIN_TEXT_CACHE_ENTRIES`` entries leave
     first in, first out.  It encodes with a private copy of the text tower, which
     training never changes (the tower is frozen)."""
-    import copy
-
-    tower = copy.deepcopy(model.vlm_text).eval()
+    tower = copy_module(model.vlm_text).eval()
     for p in tower.parameters():
         p.requires_grad_(False)
     device = next(tower.parameters()).device
@@ -436,7 +479,7 @@ def make_train_text_cache(model: OryonModel):
 def run_test_epoch(pipeline_fn, dataset, evaluator, batch_size: int, csv_fp=None,
                    compute_vsd: bool = True, text_cache=None, save_hook=None,
                    viz_dir=None, loader=None, drain_lookahead: int = 3,
-                   step_profiler=None) -> int:
+                   step_profiler=None, score: bool = True) -> int:
     """Run ``pipeline_fn(batch, text_emb) -> PipelineOutputs`` over every
     batch and register each pair with ``evaluator``; returns the number of
     pairs registered (pads excluded).
@@ -449,7 +492,11 @@ def run_test_epoch(pipeline_fn, dataset, evaluator, batch_size: int, csv_fp=None
     queue of ``drain_lookahead`` batches.  The order is first in, first out,
     so CSV rows and registrations come in the serial loop's order.  An error
     in the drain thread stops the dispatch and is raised on the caller's
-    thread."""
+    thread.
+
+    ``score=False`` dispatches every batch and registers none (returns 0):
+    the ranks other than 0 of a ``build_pipeline`` program over a mesh,
+    which take part in each batch's collectives while rank 0 scores."""
     import queue as _queue
     import threading
 
@@ -472,6 +519,8 @@ def run_test_epoch(pipeline_fn, dataset, evaluator, batch_size: int, csv_fp=None
                 if state["err"] is not None:
                     continue  # keep unblocking the producer until the sentinel
                 bi, batch, out = item
+                if not score:
+                    continue
                 try:
                     if save_hook is not None:
                         save_hook(bi, batch, out)

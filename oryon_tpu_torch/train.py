@@ -19,6 +19,16 @@ Counterpart of ``oryon_tpu/train.py``:
   the batch into micro-batches and applies the mean of their gradients; the
   metrics are the mean of their metrics (the JAX package's weighting: the
   mean of micro-batch means).
+
+Data-parallel (``mesh``, ``parallel/mesh.py``): each rank holds its rows of
+the global batch (``parallel.mesh.batch_rows``: its 1/n of each global
+micro-batch, as the JAX package's reshape of the global batch forms them),
+draws every random input for the global batch from the shared-seed generator
+and keeps its rows, computes its share of the global loss
+(``feature_loss(group=...)``), and the gradients are summed over ``data``
+before the same AdamW step on every rank: the step of one device on the
+global batch.  DDP's mean of the ranks' mean losses would be another
+function wherever the valid pairs are spread unevenly over the ranks.
 """
 from __future__ import annotations
 
@@ -29,10 +39,13 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from oryon_tpu_torch.data.device_augment import DeviceAugConfig, device_augment
+from oryon_tpu_torch.data.device_augment import (AugFactors, DeviceAugConfig, apply_factors,
+                                                 device_augment, draw_factors)
 from oryon_tpu_torch.data.pair_batch import PairBatch, device_fields
-from oryon_tpu_torch.losses.feature_loss import FeatureLossConfig, feature_loss
+from oryon_tpu_torch.losses.feature_loss import (FeatureLossConfig, draw_indices,
+                                                 feature_loss)
 from oryon_tpu_torch.models.oryon import OryonModel
+from oryon_tpu_torch.parallel.mesh import all_reduce_, all_reduce_coalesced_
 
 TRAINABLE_PREFIXES = ("fusion", "decoder")
 TOWERS = ("vlm_visual", "guidance")
@@ -160,26 +173,41 @@ def create_train_state(model: OryonModel, lr: float = 1e-3, weight_decay: float 
 
 
 def loss_and_metrics(model: OryonModel, loss_cfg: FeatureLossConfig, batch: PairBatch,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None, mesh=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of one batch.  ``batch.text_emb`` (the prompt cache)
     skips the text tower.  ``generator``: the loss's negative draws
-    (``losses.feature_loss``; none when the featmap is the whole pool)."""
+    (``losses.feature_loss``; none when the featmap is the whole pool).
+
+    ``mesh``: ``batch`` is this data rank's equal share of a global batch;
+    the draws are made for the global batch and cut to the rank's rows, and
+    the loss and metrics are the rank's shares of the global ones (they sum
+    to them over ``data``)."""
     A, Q = batch.anchor, batch.query
     ids = None
     if batch.text_emb is None:   # ids may lie on the host (``collate(train=True)``)
         ids = torch.as_tensor(batch.prompt_ids, device=A.rgb.device)
     out = model(A.rgb, Q.rgb, ids, batch.text_emb)
+    draws, group, n = None, None, 1
+    if mesh is not None:
+        group, n, r = mesh.data_group, mesh.shape["data"], mesh.data_rank
+        B, N = batch.corrs.shape[:2]
+        hw = tuple(out.featmap_a.shape[1:3])
+        if not loss_cfg.hard_negatives or hw[0] * hw[1] > loss_cfg.neg_pool:
+            if generator is None:
+                raise ValueError("feature_loss draws indices: pass a generator")
+            draws = tuple(d[r * B: (r + 1) * B]
+                          for d in draw_indices(generator, hw, B * n, N, loss_cfg))
     lo = feature_loss(out.featmap_a, out.featmap_q, out.mask_a, out.mask_q, A.mask, Q.mask,
                       batch.corrs, batch.corr_valid, batch.valid, tuple(A.rgb.shape[1:3]),
-                      generator, loss_cfg)
+                      generator, loss_cfg, draws=draws, group=group)
     metrics = {
         "loss/total": lo.total,
         "loss/mask": lo.losses["mask"],
         "loss/pos": lo.losses["pos"],
         "loss/neg": lo.losses["neg"],
-        "metric/iou_a": torch.mean(lo.iou_a.float()),
-        "metric/iou_q": torch.mean(lo.iou_q.float()),
+        "metric/iou_a": torch.mean(lo.iou_a.float()) / n,
+        "metric/iou_q": torch.mean(lo.iou_q.float()) / n,
     }
     return lo.total, metrics
 
@@ -193,9 +221,22 @@ def _slice(x, sl: slice):
     return x[sl]
 
 
+def _augment(batch: PairBatch, generator: torch.Generator, cfg: DeviceAugConfig, mesh,
+             accum_steps: int) -> PairBatch:
+    """``device_augment``; on a mesh the factors of the global batch, cut to
+    this rank's rows."""
+    if mesh is None:
+        return device_augment(batch, generator, cfg)
+    B = batch.corrs.shape[0] * mesh.shape["data"]
+    rows = torch.as_tensor(mesh.batch_rows(B, accum_steps), device=generator.device)
+    f = draw_factors(generator, B)
+    return apply_factors(batch, AugFactors(*(t.index_select(1, rows) for t in f)), cfg)
+
+
 def train_step(state: TrainState, batch: PairBatch, generator: Optional[torch.Generator] = None,
                aug_cfg: Optional[DeviceAugConfig] = None, accum_steps: int = 1,
-               stage_events: Optional[list] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               stage_events: Optional[list] = None, mesh=None
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step on ``state`` (updated in place and returned) and
     the step's metrics as 0-d tensors on the device (read them only when
     needed: a read waits for the device).
@@ -204,7 +245,11 @@ def train_step(state: TrainState, batch: PairBatch, generator: Optional[torch.Ge
     from ``generator``.  ``accum_steps``: micro-batches of B / accum_steps;
     the update applies the mean of their gradients.  ``stage_events``, a
     list, collects (stage, CUDA event) pairs at the boundaries of augment,
-    forward + loss, backward and optimizer, for timing on the card."""
+    forward + loss, backward and optimizer, for timing on the card.
+
+    ``mesh``: data-parallel step; ``batch`` holds this rank's rows of the
+    global batch (``parallel.mesh.shard_batch(batch, mesh, accum_steps)``),
+    the metrics are the global batch's on every rank."""
     def mark(name):
         if stage_events is not None:
             ev = torch.cuda.Event(enable_timing=True)
@@ -218,19 +263,26 @@ def train_step(state: TrainState, batch: PairBatch, generator: Optional[torch.Ge
     model.train()
     mark("start")
     if aug_cfg is not None:
-        batch = device_augment(batch, generator, aug_cfg)
+        batch = _augment(batch, generator, aug_cfg, mesh, accum_steps)
     mark("augment")
     opt.zero_grad(set_to_none=True)
     n = B // accum_steps
     sums: Dict[str, torch.Tensor] = {}
     for i in range(accum_steps):
         micro = _slice(batch, slice(i * n, (i + 1) * n)) if accum_steps > 1 else batch
-        loss, metrics = loss_and_metrics(model, state.loss_cfg, micro, generator)
+        loss, metrics = loss_and_metrics(model, state.loss_cfg, micro, generator, mesh)
         mark("forward")
         loss.backward()
         mark("backward")
         for k, v in metrics.items():
             sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+    if mesh is not None:
+        # each rank's gradient is that of its share of the global loss
+        all_reduce_coalesced_([p.grad for group in opt.param_groups for p in group["params"]
+                               if p.grad is not None], mesh.data_group)
+        keys = list(sums)
+        total = all_reduce_(torch.stack([sums[k] for k in keys]), mesh.data_group)
+        sums = dict(zip(keys, total.unbind()))
     if accum_steps > 1:
         inv = 1.0 / accum_steps
         for group in opt.param_groups:
@@ -246,13 +298,14 @@ def train_step(state: TrainState, batch: PairBatch, generator: Optional[torch.Ge
     return state, sums
 
 
-def make_train_step(aug_cfg: Optional[DeviceAugConfig] = None, accum_steps: int = 1):
+def make_train_step(aug_cfg: Optional[DeviceAugConfig] = None, accum_steps: int = 1,
+                    mesh=None):
     """``run(state, batch, generator) -> (state, metrics)``: ``train_step``
-    on the batch's device fields with the augmentation and accumulation
-    fixed."""
+    on the batch's device fields with the augmentation, accumulation and
+    mesh fixed (on a mesh, ``batch`` is the rank's rows)."""
     def run(state: TrainState, batch: PairBatch, generator: Optional[torch.Generator] = None,
             stage_events: Optional[list] = None):
         return train_step(state, device_fields(batch), generator, aug_cfg, accum_steps,
-                          stage_events)
+                          stage_events, mesh)
 
     return run

@@ -15,9 +15,13 @@ config first; ``key=value`` overrides use the config tree's grammar.
 ``--device`` (default ``cuda``) chooses where the model, the kernels and the
 scoring run; ``--device cpu`` runs the kernels' plain PyTorch versions.
 
-One card: a device mesh (``mesh.data`` above 1, ``mesh.model`` above 1) is
-refused; ``mesh.data=-1`` means the one device.  A missing PointDSC
-snapshot falls back to RANSAC with a WARNING, as ``run_test.py`` does.
+Several GPUs: launched by ``torchrun --nproc-per-node N``, each rank uses
+``cuda:LOCAL_RANK`` and the batches are split over ``mesh.data`` ranks, with
+the towers tensor-parallel over ``mesh.model`` (``serving_mesh``'s policy:
+one device, with a WARNING, when the mesh does not fit the job or the
+batch).  Every rank loads each batch; rank 0 alone prints, scores and
+writes.  A missing PointDSC snapshot falls back to RANSAC with a WARNING, as
+``run_test.py`` does.
 """
 from __future__ import annotations
 
@@ -39,9 +43,12 @@ def _flag(argv, name, default=None):
 def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
     """Everything one sweep needs, built from the config tree: dataset,
     model (weights: seed, pretrained at size full, ``eval.ckpt``), PointDSC
-    or RANSAC, the batch program, the evaluator with the split's objects,
-    the per-class text cache and the prefetching loader."""
+    or RANSAC, the batch program (over the mesh, when the job has several
+    ranks), the evaluator with the split's objects (rank 0; None on the
+    others), the per-class text cache and the prefetching loader."""
     import torch
+
+    from oryon_tpu_torch.parallel.mesh import init_distributed, launched
 
     from oryon_tpu_torch.checkpoint import init_experiment
     from oryon_tpu_torch.data.datasets import PairDataset, pick_reader
@@ -49,16 +56,13 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
     from oryon_tpu_torch.eval.evaluator import BatchedEvaluator
     from oryon_tpu_torch.infer import full_precision_matmuls, model_from_config
     from oryon_tpu_torch.models.tokenizer import ClipTokenizer
-    from oryon_tpu_torch.pipeline import (build_pointdsc_solver, make_pipeline_config,
-                                          make_run_fn, make_text_cache,
+    from oryon_tpu_torch.parallel.mesh import is_rank0, place_params, serving_mesh
+    from oryon_tpu_torch.parallel.tp import shard_params_tp
+    from oryon_tpu_torch.pipeline import (build_pipeline, build_pointdsc_solver,
+                                          make_pipeline_config, make_text_cache,
                                           pointdsc_weights_available)
 
-    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
-        raise NotImplementedError(
-            f"mesh.data={cfg.mesh.data}, mesh.model={cfg.mesh.model}: the port "
-            "evaluates on one device; serving over several is ROADMAP.md queue 1 "
-            "item 6")
-    device = torch.device(device)
+    device = init_distributed(device) if launched() else torch.device(device)
     full_precision_matmuls()   # pose math and scoring in full f32
     init_experiment(cfg)
     model, epoch = model_from_config(cfg)
@@ -102,33 +106,55 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
                   "so pose metrics stay meaningful")
             solver = "ransac"
     pcfg = make_pipeline_config(cfg, solver)
-    run = make_run_fn(model, pcfg, pointdsc)
+    # several GPUs: the batch split over the data axis (replicated params;
+    # an optional TP axis shards the towers)
+    mesh = serving_mesh(cfg.mesh.data, cfg.mesh.model, cfg.dataset.batch_size, label="eval")
+    if mesh is not None:
+        if cfg.mesh.model > 1:
+            shard_params_tp(model, mesh)
+        place_params(model, mesh)
+    run = build_pipeline(model, pcfg, pointdsc, mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed if cfg.use_seed else 1)
 
     def pipe(batch, text_emb=None):
         return run(batch, text_emb, generator=generator)
 
-    ev = BatchedEvaluator(cfg.exp_tag, compute_vsd=cfg.compute_vsd,
-                          vsd_window=cfg.eval.vsd_window, device=device)
-    ev.add_object_info(ds.reader.object_info())
-    ev.init_test()
+    ev = None
+    if is_rank0():
+        ev = BatchedEvaluator(cfg.exp_tag, compute_vsd=cfg.compute_vsd,
+                              vsd_window=cfg.eval.vsd_window, device=device)
+        ev.add_object_info(ds.reader.object_info())
+        ev.init_test()
     loader = PrefetchLoader(ds, cfg.dataset.batch_size, sort_by_class=True)
     return types.SimpleNamespace(cfg=cfg, device=device, model=model, pointdsc=pointdsc,
-                                 pcfg=pcfg, run=run, pipe=pipe, ds=ds, evaluator=ev,
+                                 pcfg=pcfg, mesh=mesh, run=run, pipe=pipe, ds=ds, evaluator=ev,
                                  text_cache=make_text_cache(model), loader=loader)
 
 
 def main(argv):
     """Returns the prepared sweep (``prepare``) with the written paths and
-    the number of pairs registered."""
+    the number of pairs registered (0 on the ranks other than 0)."""
+    from oryon_tpu_torch.parallel.mesh import rank0_output
+
+    with rank0_output():
+        return _main(argv)
+
+
+def _main(argv):
     overrides = [a for a in argv if "=" in a and not a.startswith("--")]
     from oryon_tpu_torch.checkpoint import results_dir
     from oryon_tpu_torch.config import load_config, save_config
+    from oryon_tpu_torch.parallel.mesh import is_rank0
     from oryon_tpu_torch.pipeline import run_test_epoch
     from oryon_tpu_torch.utils.profiling import StepProfiler
 
     cfg = load_config(_flag(argv, "--config"), overrides)
     sw = prepare(cfg, _flag(argv, "--device", "cuda"))
+    if not is_rank0():
+        # the other ranks take part in each batch's collectives only
+        sw.n = run_test_epoch(sw.pipe, sw.ds, None, cfg.dataset.batch_size,
+                              text_cache=sw.text_cache, loader=sw.loader, score=False)
+        return sw
     print(f"TESTING on {cfg.dataset.test.name}, split {cfg.dataset.test.split}."
           f" Samples: {len(sw.ds)}")
 
@@ -166,4 +192,7 @@ def main(argv):
 
 
 if __name__ == "__main__":
+    from oryon_tpu_torch.parallel.mesh import shutdown
+
     main(sys.argv[1:])
+    shutdown()

@@ -19,10 +19,14 @@ YAML config first; ``key=value`` overrides use the config tree's grammar.
 ``--device cpu`` runs the kernels' plain versions; there is no fallback
 from one to the other.
 
-One card: a device mesh (``mesh.data`` above 1, ``mesh.model`` above 1) is
-refused.  ``training.rss_restart_gib`` is read and ignored: it restarts the
-JAX trainer against a host-memory leak of its TPU runtime, which this
-runtime does not have.
+Several GPUs: launched by ``torchrun --nproc-per-node N``, each rank uses
+``cuda:LOCAL_RANK`` and trains on its rows of every global batch of
+``dataset.batch_size`` (``mesh.data`` ranks, -1: all of them // ``mesh.model``),
+with the towers tensor-parallel over ``mesh.model``; the gradients are summed
+over the data ranks, so the run is that of one device on the same batches.
+Rank 0 alone prints, logs and writes checkpoints.  ``training.rss_restart_gib``
+is read and ignored: it restarts the JAX trainer against a host-memory leak
+of its TPU runtime, which this runtime does not have.
 """
 from __future__ import annotations
 
@@ -106,22 +110,26 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
     from oryon_tpu_torch.losses.feature_loss import FeatureLossConfig
     from oryon_tpu_torch.models.layers import random_init_
     from oryon_tpu_torch.models.oryon import build_model, resolve_attn_impl, resolve_quant
+    from oryon_tpu_torch.parallel.mesh import (init_distributed, is_distributed, is_rank0,
+                                               launched, make_mesh, place_params)
+    from oryon_tpu_torch.parallel.tp import shard_params_tp
     from oryon_tpu_torch.pipeline import make_train_text_cache
     from oryon_tpu_torch.train import create_train_state, make_train_step
     from oryon_tpu_torch.utils.logging import MetricLogger
 
-    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
-        raise NotImplementedError(
-            f"mesh.data={cfg.mesh.data}, mesh.model={cfg.mesh.model}: the port "
-            "trains on one device; training over several is ROADMAP.md queue 1 "
-            "item 6")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to "
                            "train on the CPU")
+    device = init_distributed(device) if launched() else torch.device(device)
+    mesh = None
+    if is_distributed():
+        mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
+    elif cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
+        raise ValueError(f"mesh.data={cfg.mesh.data}, mesh.model={cfg.mesh.model} "
+                         "needs several ranks: launch with torchrun --nproc-per-node N")
     full_precision_matmuls()   # f32 layers and the validation's pose math in full f32
     init_experiment(cfg, snapshot=True)
-    logger = MetricLogger(logs_dir(cfg), cfg.exp_name)
+    logger = MetricLogger(logs_dir(cfg), cfg.exp_name) if is_rank0() else None
 
     size = cfg.model.size
     # training stays bf16 by default (model.train_quant): the int8 serving
@@ -146,13 +154,6 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
         mask_threshold=cfg.test.mask_threshold,
         w_mask=cfg.loss.w.mask, w_pos=cfg.loss.w.pos, w_neg=cfg.loss.w.neg)
 
-    model = model.to(device)
-    state = create_train_state(model, lr=cfg.optimization.lr,
-                               weight_decay=cfg.optimization.w_decay,
-                               total_steps=total_steps, gamma=cfg.optimization.gamma,
-                               loss_cfg=loss_cfg, optim_type=cfg.optimization.optim_type,
-                               scheduler_type=cfg.optimization.scheduler_type,
-                               momentum=cfg.optimization.momentum)
     if size == "full":
         from oryon_tpu_torch.models.pretrained import load_pretrained_params
         for line in load_pretrained_params(cfg, model):
@@ -161,28 +162,44 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
         src_path = restore_params_only(cfg, model, cfg.init_params_from)
         print(f"warm-started params from {src_path} "
               "(fresh optimizer state / schedule)")
+    model = model.to(device)
+    if mesh is not None:
+        # the unsharded weights as loaded, then each rank keeps its shards
+        shard_params_tp(model, mesh)
+        place_params(model, mesh)
+    state = create_train_state(model, lr=cfg.optimization.lr,
+                               weight_decay=cfg.optimization.w_decay,
+                               total_steps=total_steps, gamma=cfg.optimization.gamma,
+                               loss_cfg=loss_cfg, optim_type=cfg.optimization.optim_type,
+                               scheduler_type=cfg.optimization.scheduler_type,
+                               momentum=cfg.optimization.momentum)
     start_epoch = 0
     if cfg.resume_ckpt != "none":
         epoch = restore_train_state(cfg, state, cfg.resume_ckpt)
         start_epoch = epoch + 1
         print(f"Resumed from epoch {epoch}")
+    if cfg.mesh.model > 1:
+        print(f"tensor-parallel params over model axis = {cfg.mesh.model}")
 
     aug_cfg = None
     if on_device:
         rgb = cfg.augs.rgb
         aug_cfg = DeviceAugConfig(jitter=rgb.jitter, bright=rgb.bright,
                                   hflip=rgb.hflip, vflip=rgb.vflip)
-    step_fn = make_train_step(aug_cfg, cfg.training.accum_steps)
+    step_fn = make_train_step(aug_cfg, cfg.training.accum_steps, mesh)
     if cfg.training.accum_steps > 1:
         print(f"gradient accumulation: {cfg.training.accum_steps} micro-batches "
               f"of {cfg.dataset.batch_size // cfg.training.accum_steps}")
     if aug_cfg is not None:
         print("augmentations: on-device (color jitter + flips fused into "
               "the train step)")
+    # each data rank collates its rows of the single-device batches
+    rows = None if mesh is None else mesh.batch_rows(cfg.dataset.batch_size,
+                                                     cfg.training.accum_steps)
     loader = PrefetchLoader(train_ds, cfg.dataset.batch_size, shuffle=True,
-                            drop_last=True, train=True)
+                            drop_last=True, train=True, rows=rows)
     return types.SimpleNamespace(
-        cfg=cfg, device=device, model=model, state=state, step_fn=step_fn,
+        cfg=cfg, device=device, mesh=mesh, model=model, state=state, step_fn=step_fn,
         train_ds=train_ds, valid_ds=valid_ds, loader=loader, logger=logger,
         text_cache=make_train_text_cache(model), start_epoch=start_epoch,
         generator=torch.Generator(device=device).manual_seed(cfg.seed))
@@ -200,8 +217,10 @@ def train_epoch(tr, profiler=None) -> int:
         if profiler is not None:
             profiler.step()
         if bi % 10 == 0:
-            tr.logger.log_step(state.step, metrics, prefix="train")
-            # a hard stop, so that a poisoned run fails fast
+            if tr.logger is not None:
+                tr.logger.log_step(state.step, metrics, prefix="train")
+            # a hard stop, so that a poisoned run fails fast (the metrics
+            # are the global batch's, so every rank stops)
             total = float(metrics["loss/total"])
             if total != total:
                 raise FloatingPointError(f"non-finite loss at step {state.step}")
@@ -210,6 +229,13 @@ def train_epoch(tr, profiler=None) -> int:
 
 def main(argv):
     """Returns the prepared run (``prepare``) after its last epoch."""
+    from oryon_tpu_torch.parallel.mesh import rank0_output
+
+    with rank0_output():
+        return _main(argv)
+
+
+def _main(argv):
     overrides = [a for a in argv if "=" in a and not a.startswith("--")]
     from oryon_tpu_torch.checkpoint import logs_dir, save_train_state
     from oryon_tpu_torch.config import load_config
@@ -222,27 +248,32 @@ def main(argv):
     try:
         for epoch in range(tr.start_epoch, cfg.training.n_epochs):
             train_epoch(tr, profiler)
-            means = tr.logger.epoch_summary(epoch)
-            print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+            if tr.logger is not None:
+                means = tr.logger.epoch_summary(epoch)
+                print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in means.items()))
             if (epoch + 1) % cfg.training.freq_save == 0 or epoch == cfg.training.n_epochs - 1:
                 print(f"saved {save_train_state(cfg, epoch, tr.state)}")
             if tr.valid_ds is not None and (epoch + 1) % cfg.training.freq_valid == 0:
                 run_validation(cfg, tr.model, tr.state, tr.valid_ds, tr.generator, epoch,
-                               logger=tr.logger)
+                               logger=tr.logger, mesh=tr.mesh)
     finally:
         profiler.close()
-        tr.logger.close()
+        if tr.logger is not None:
+            tr.logger.close()
     return tr
 
 
-def run_validation(cfg, model, state, valid_ds, generator, epoch, logger=None):
+def run_validation(cfg, model, state, valid_ds, generator, epoch, logger=None, mesh=None):
     """Pose validation (no VSD) through the batched eval program, with the
     configured solver, or RANSAC when the PointDSC snapshot is absent (a
-    random PointDSC would make the pose curves noise).  Returns the means."""
+    random PointDSC would make the pose curves noise).  Returns the means
+    (None on the ranks other than 0: over a ``mesh`` each batch is split
+    over the data ranks and rank 0 scores)."""
     from oryon_tpu_torch.data.loader import PrefetchLoader
     from oryon_tpu_torch.eval.evaluator import BatchedEvaluator
-    from oryon_tpu_torch.pipeline import (build_pointdsc_solver, make_pipeline_config,
-                                          make_run_fn, pointdsc_weights_available,
+    from oryon_tpu_torch.parallel.mesh import is_rank0
+    from oryon_tpu_torch.pipeline import (build_pipeline, build_pointdsc_solver,
+                                          make_pipeline_config, pointdsc_weights_available,
                                           run_test_epoch)
 
     device = next(model.parameters()).device
@@ -255,18 +286,21 @@ def run_validation(cfg, model, state, valid_ds, generator, epoch, logger=None):
                   "so pose metrics stay meaningful")
             solver = "ransac"
     model.eval()
-    run = make_run_fn(model, make_pipeline_config(cfg, solver, mask_source="predicted"),
-                      pointdsc)
+    run = build_pipeline(model, make_pipeline_config(cfg, solver, mask_source="predicted"),
+                         pointdsc, mesh)
 
     def pipe(batch, text_emb=None):
         return run(batch, text_emb, generator=generator)
 
+    loader = PrefetchLoader(valid_ds, cfg.dataset.batch_size, sort_by_class=True)
+    if not is_rank0():
+        run_test_epoch(pipe, valid_ds, None, cfg.dataset.batch_size, loader=loader, score=False)
+        return None
     ev = BatchedEvaluator(cfg.exp_tag, compute_vsd=False, device=device)
     ev.add_object_info(valid_ds.reader.object_info())
     ev.init_test()
     run_test_epoch(pipe, valid_ds, ev, cfg.dataset.batch_size, compute_vsd=False,
-                   loader=PrefetchLoader(valid_ds, cfg.dataset.batch_size,
-                                         sort_by_class=True))
+                   loader=loader)
     means = ev.get_means()
     print(f"valid epoch {epoch}: " +
           " ".join(f"{k}={v:.3f}" for k, v in sorted(means.items())
@@ -278,4 +312,7 @@ def run_validation(cfg, model, state, valid_ds, generator, epoch, logger=None):
 
 
 if __name__ == "__main__":
+    from oryon_tpu_torch.parallel.mesh import shutdown
+
     main(sys.argv[1:])
+    shutdown()

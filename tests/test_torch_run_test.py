@@ -178,7 +178,7 @@ def test_run_test_torch_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     """The CLI at tiny size on a 480 x 640 tree (2 classes, 4 pairs), VSD
     on (96 px window), RANSAC + ICP, from a checkpoint: the JAX CLI's lines,
     4 CSV lines of 5 fields, the metrics JSON with BatchedEvaluator's keys,
-    the config record; a device mesh is refused."""
+    the config record; a device mesh on one device evaluates there."""
     import chip_smoke
     import run_test_torch
     from oryon_tpu_torch import checkpoint as ckpt
@@ -212,8 +212,10 @@ def test_run_test_torch_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     saved = json.load(open(sw.json))
     assert set(saved) == set(ref.metrics) | set(ref.counts) and len(saved["VSD"]) == 4
     assert any(f.startswith("config_") for f in os.listdir(os.path.dirname(sw.csv)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        run_test_torch.main(args + ["mesh.data=4", "--device", "cpu"])
+    # a mesh on a host of one device: one device, as run_test.py's
+    # serving_mesh policy gives (no line printed)
+    assert run_test_torch.prepare(load_config(None, args + ["mesh.data=4"]), "cpu").mesh is None
+    assert "mesh" not in capsys.readouterr().out
 
 
 def test_savers_and_step_profiler(tmp_path, nocs_root):  # noqa: F811

@@ -105,7 +105,7 @@ def test_run_train_torch_main_on_the_cpu(trees, tmp_path, capsys, monkeypatch):
            "schedule)" in out
     assert tr.state.step == n // 2
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match="torchrun"):
         run_train_torch.main(_args(root, tmp_path, "mesh.data=4"))
     if not torch.cuda.is_available():
         args = _args(root, tmp_path)[:-2]

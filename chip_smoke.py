@@ -83,30 +83,45 @@ Phases, each printing one line with its result and its time:
                optimizer state and LR; steps from the loader split into
                loader wait, augment, forward + loss, backward and optimizer;
                pairs/s trained; peak memory
- 15. overfit   10 AdamW steps at full width on one synthetic batch of 8 with
+ 15. pointdsc_train  oryon_tpu_torch.scripts.train_pointdsc at its defaults
+               (6 layers, n=256, B=8, lr 1e-4) for 300 steps: the BCE falls,
+               the inlier accuracy ends above 0.6, the median step is timed;
+               the written native.npz loads through build_pointdsc_solver,
+               registers a known rigid pair on the card as on the CPU, and
+               serves one batch of 8 at full width (K1 24, K2 1)
+ 16. tools     the offline tools over the eval and train phases' trees:
+               make_pair_split (16 pairs) on the card against the CPU;
+               compute_metrics on the eval phase's CSV against its metrics;
+               null_baselines (the ground truth scores recall 1);
+               sweep_checkpoints over the train phase's 3 epochs with the
+               trained PointDSC (K1 48, K2 2 an epoch; its last row equals
+               run_test_torch on that checkpoint); sweep_eval_hparams with
+               two variants; each fusion ablation at full width in bf16
+               against its f32 CPU run (cosine > 0.999)
+ 17. overfit   10 AdamW steps at full width on one synthetic batch of 8 with
                the same draws each step: the loss falls
- 16. train_towers  2 steps at full width, B=32, with the vision and Swin
+ 18. train_towers  2 steps at full width, B=32, with the vision and Swin
                towers trained: K1 24 + 24 (recomputed) a step, gradients in
                both towers and none in the text tower, peak memory; the
                step's fusion/decoder gradient against the einsum tower's
                (cosine > 0.999, loss within 1e-2); attn_impl=flash raises in
                backward; K1's backward (autograd through the plain version)
                at [64, 577, 3072] timed against SDPA's backward
- 17. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
+ 19. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
                train step over make_mesh(-1, 1) (gradient all-reduce, global
                loss normaliser, global draws) equals the plain step bitwise
                at full width, B=32; both timed in turns
- 18. dp2       two gloo ranks spawned on the one card (NCCL refuses two ranks
+ 20. dp2       two gloo ranks spawned on the one card (NCCL refuses two ranks
                on one GPU), mesh.data=2: 3 steps with run_train.py's defaults
                at B=32 (16 a rank) against one device on the same batches and
                draws (losses within rel 1e-3, fusion/decoder gradient cosine
                above 0.9999); a served batch of 8 (4 a rank) bitwise one
                device's runs of each rank's pairs with the same draws; K1 and
                K2 launches per rank
- 19. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
+ 21. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
                tower and featmaps against the unsharded model's (cosine above
                0.999), served masks; K1 at 8 heads a rank
- 20. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
+ 22. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -1977,6 +1992,7 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
                      f"nn_correspondences_anchors K2 {acounts['k2']}, rows equal the CPU's "
                      f"{same:.4f}"),
             "sweeps": {"scored": scored, "unscored": unscored, "preloaded": preloaded},
+            "csv": sw.csv, "means": means,
             "render_ms": render_ms, "score_ms": score_s * 1e3}
 
 
@@ -2126,6 +2142,252 @@ def phase_train(torch, tmp, pd_dir, layers, smi_line):
                      f"backward {split['backward']:.1f}, optimizer {split['optimizer']:.1f}); "
                      f"peak {peak_gib:.2f} GiB allocated"),
             "split": split, "pairs_s": sp["pairs_s"], "peak_gib": peak_gib}
+
+
+PD_TRAIN_STEPS = 300                # train_pointdsc at its defaults otherwise
+PD_ACC_BOUND = 0.6                  # inlier accuracy over the last 20 steps
+
+
+@phase("pointdsc_train")
+def phase_pointdsc_train(torch, tmp, layers, smi_line):
+    """train_pointdsc at its full defaults (6 layers, n=256, batch 8, lr 1e-4)
+    for PD_TRAIN_STEPS steps: the BCE falls, the inlier accuracy ends above
+    PD_ACC_BOUND; the written native.npz loads through build_pointdsc_solver,
+    registers a known rigid pair on the card as on the CPU, and serves one
+    batch of 8 at full width through K1 and K2."""
+    import copy
+
+    from oryon_tpu_torch.pipeline import build_pointdsc_solver
+    from oryon_tpu_torch.scripts import train_pointdsc
+    out = os.path.join(tmp, "pd_trained")
+    t0 = time.perf_counter()
+    run, _ = _printed(lambda: train_pointdsc.main([
+        f"steps={PD_TRAIN_STEPS}", "batch=8", "n=256", "lr=1e-4", f"out={out}",
+        "--device", DEVICE]))
+    train_s = time.perf_counter() - t0
+    h = run.history
+    bce0, bce1, acc1 = h[:50, 1].mean(), h[-50:, 1].mean(), h[-20:, 3].mean()
+    check(np.isfinite(h).all() and bce1 < bce0, f"BCE {bce0:.4f} over the first 50 steps, "
+                                                f"{bce1:.4f} over the last 50")
+    check(acc1 > PD_ACC_BOUND, f"inlier accuracy {acc1:.3f} over the last 20 steps")
+    step_ms = float(np.median(run.step_s[10:])) * 1e3
+
+    pd, text = _printed(lambda: build_pointdsc_solver(out))
+    check("flax-native" in text, f"build_pointdsc_solver printed {text!r}")
+    A, B, valid, Ts = _rigid_case(torch, np.random.RandomState(13))
+    with torch.inference_mode():
+        T_card = pd.to(DEVICE)(A, B, valid)[0].cpu().numpy()
+        T_cpu = copy.deepcopy(pd).cpu()(A.cpu(), B.cpu(), valid.cpu())[0].numpy()
+    dev_err = _pose_err(T_card, T_cpu.astype(np.float64))
+    gt_err = _pose_err(T_card, Ts)
+    check(dev_err[0] < ROT_TOL and dev_err[1] < TRANS_TOL,
+          f"trained PointDSC: the card's poses {dev_err[0]:.2e} rad, {dev_err[1]:.2e} m from "
+          f"the CPU's")
+    check(gt_err[0] < ROT_TOL and gt_err[1] < TRANS_TOL,
+          f"trained PointDSC: {gt_err[0]:.2e} rad, {gt_err[1]:.2e} m from the known transform")
+
+    model, _ = _serving_model(torch)
+    pred = _predictor(model, pd)
+    reqs = _requests(np.random.RandomState(14), 8, ["mug", "box", "bottle"])
+    results, counts = _counted(torch, lambda: pred.predict(reqs))
+    n_det = _check_results(results, reqs)
+    check(counts["k1"] == layers and counts["k2"] == 1 and sum(counts.values()) == layers + 1,
+          f"a served batch with the trained PointDSC: launches {counts}")
+    del pred, model
+    return {"line": (f"{smi_line}: train_pointdsc {PD_TRAIN_STEPS} steps (6 layers, n=256, "
+                     f"B=8) in {train_s:.1f} s, median step {step_ms:.2f} ms; BCE "
+                     f"{bce0:.4f} -> {bce1:.4f} (first / last 50 steps), inlier accuracy "
+                     f"{acc1:.3f} (last 20); held-out 16 problems: R err mean "
+                     f"{run.r_errs.mean():.3f} deg (median {np.median(run.r_errs):.3f}), T err "
+                     f"mean {run.t_errs.mean():.3f} cm; native.npz through "
+                     f"build_pointdsc_solver: card vs CPU {dev_err[0]:.1e} rad / "
+                     f"{dev_err[1]:.1e} m, vs the known transform {gt_err[0]:.1e} rad / "
+                     f"{gt_err[1]:.1e} m; a served batch of 8 with it: K1 {counts['k1']} K2 "
+                     f"{counts['k2']}, {n_det} detections"),
+            "pd_dir": out, "step_ms": step_ms}
+
+
+def _split_nn(root, key, device):
+    """make_pair_split's nearest-neighbour search of one written pair:
+    (warped anchor points, query points, nearest index, distance mm)."""
+    from oryon_tpu_torch.data.datasets import NocsReader
+    from oryon_tpu_torch.scripts import make_pair_split as mps
+    sa, ia, sq, iq, _, obj = key.split("_", 5)
+    reader = NocsReader(root)
+    item_a, item_q = reader.get_item(int(sa), int(ia), obj), reader.get_item(int(sq), int(iq), obj)
+    rel = np.asarray(item_q["pose"], np.float64) @ np.linalg.inv(
+        np.asarray(item_a["pose"], np.float64))
+    rel[:3, 3] *= 1000.0
+    warped, _, pq, _, _ = mps.subsampled(*mps.lift_masked(item_a), *mps.lift_masked(item_q), rel)
+    return (warped, pq, *mps.nearest(warped, pq, device))
+
+
+def _check_split(root, card, cpu) -> dict:
+    """The card's split against the CPU's: instance lists byte-equal, poses
+    exact, and the matches equal except where the two devices' f32 distance
+    expansions (a^2 - 2ab + b^2 in mm, coordinates near 700 mm) round
+    differently: each device's nearest neighbour must then be nearest in
+    f64 up to that rounding, and a match may flip only where the f64
+    distance lies within it of the 2 mm threshold."""
+    with open(os.path.join(card.out_dir, "instance_list.txt"), "rb") as a, \
+            open(os.path.join(cpu.out_dir, "instance_list.txt"), "rb") as b:
+        check(a.read() == b.read(), "instance_list.txt differs between the card and the CPU")
+    check(card.annots.keys() == cpu.annots.keys(), "the pairs differ")
+    differ, rows, eps_max = 0, 0, 0.0
+    for key, want in cpu.annots.items():
+        got = card.annots[key]
+        check(np.array_equal(got["gt"], want["gt"]), f"{key}: gt differs")
+        if np.array_equal(got["corrs"], want["corrs"]):
+            continue
+        differ += 1
+        warped, pq, i_card, d_card = _split_nn(root, key, DEVICE)
+        i_cpu, d_cpu = _split_nn(root, key, "cpu")[2:]
+        good_card, good_cpu = d_card < 2.0, d_cpu < 2.0
+        odd = np.nonzero((good_card != good_cpu) | ((i_card != i_cpu) & good_card & good_cpu))[0]
+        d2 = ((warped[odd, None, :] - pq[None]) ** 2).sum(-1)             # f64
+        best = d2.min(1)
+        # the rounding of the f32 expansion: a few ulps of (|a| + |b|)^2
+        eps = 2.0 ** -21 * (np.linalg.norm(warped[odd], axis=1)
+                            + np.linalg.norm(pq, axis=1).max()) ** 2
+        r = np.arange(len(odd))
+        check(np.all(d2[r, i_card[odd]] - best <= eps) and np.all(d2[r, i_cpu[odd]] - best <= eps),
+              f"{key}: a device's nearest neighbour is not nearest in f64")
+        flip = good_card[odd] != good_cpu[odd]
+        check(np.all(np.abs(best[flip] - 4.0) <= eps[flip]),
+              f"{key}: a match flips away from the 2 mm threshold")
+        rows += len(odd)
+        eps_max = max(eps_max, float(eps.max()))
+    return {"pairs": len(cpu.annots), "differ": differ, "rows": rows, "eps_mm2": eps_max}
+
+
+FUSION_ABLATIONS = (("full attention", dict(attention_type="full")),
+                    ("mlp head", dict(guidance_head="mlp")),
+                    ("no head", dict(guidance_head="none")),
+                    ("no appearance guidance", dict(use_appearance_guidance=False)))
+FUSION_COS_BOUND = 0.999
+
+
+def _fusion_ablations(torch) -> dict:
+    """Each ablation of the fusion at full width (B=16 images) on the card
+    in bf16 against its f32 CPU run on the same inputs and weights: the
+    smallest per-image cosine."""
+    import dataclasses
+
+    from oryon_tpu_torch.models.fusion import FusionConfig, ImageTextFusion
+    from oryon_tpu_torch.models.layers import random_init_
+    rs = np.random.RandomState(15)
+    c = FusionConfig()
+    x = [rs.randn(16, 24, 24, c.clip_dim), rs.randn(16, c.num_prompts, c.text_guidance_dim),
+         rs.randn(16, 24, 24, c.appearance_guidance_dim)]
+    x = [torch.tensor(a, dtype=torch.float32) for a in x]
+    out = {}
+    for name, kw in FUSION_ABLATIONS:
+        cfg = dataclasses.replace(c, **kw)
+        card = random_init_(ImageTextFusion(cfg), torch.Generator().manual_seed(16))
+        ref = ImageTextFusion(cfg, dtype=torch.float32)
+        ref.load_state_dict(card.state_dict())
+        with torch.inference_mode():
+            got = card.to(DEVICE)(*(a.to(DEVICE) for a in x)).float().cpu()
+            want = ref(*x)
+        out[name] = _min_cosine(torch, [got], [want])
+        check(out[name] > FUSION_COS_BOUND, f"fusion ({name}): cosine {out[name]:.6f} on the "
+                                            f"card against the f32 CPU run")
+    return out
+
+
+@phase("tools")
+def phase_tools(torch, tmp, pd_dir, layers, smi_line, eval_res):
+    """The offline tools over the eval and train phases' trees and
+    checkpoints: make_pair_split on the card against the CPU;
+    compute_metrics on the eval phase's CSV; null_baselines; the checkpoint
+    sweep of the train phase's epochs (K1 / K2 launches per epoch, its last
+    row against run_test_torch on that checkpoint); the hyper-parameter
+    sweep; the fusion ablations against their f32 CPU runs."""
+    import run_test_torch
+    from oryon_tpu_torch.scripts import (compute_metrics, make_pair_split, null_baselines,
+                                         sweep_checkpoints, sweep_eval_hparams)
+    name = "nocs_smoke"
+    root = os.path.join(tmp, name)
+    times = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out, _ = _printed(fn)
+        times[key] = time.perf_counter() - t0
+        return out
+
+    split = [f"dataset.root={tmp}", f"dataset.test.name={name}", "n_pairs=16", "pair_mode=any"]
+    card = timed("split", lambda: make_pair_split.main(split + ["split_name=made_card",
+                                                                "--device", DEVICE]))
+    cpu = timed("split_cpu", lambda: make_pair_split.main(split + ["split_name=made_cpu",
+                                                                   "--device", "cpu"]))
+    check(len(card.lines) == 16, f"make_pair_split wrote {len(card.lines)} pairs")
+    sp = _check_split(root, card, cpu)
+
+    base = [a for a in _eval_overrides(tmp, pd_dir, name)
+            if not a.startswith(("eval.ckpt=", "exp_name=", "compute_vsd="))]
+    ev = timed("metrics", lambda: compute_metrics.main(
+        [eval_res["csv"], *base, "compute_vsd=false", "--device", DEVICE]))
+    got, want = ev.get_means(), eval_res["means"]
+    keys = [k for k in got if k in want]
+    errs = {k: abs(got[k] - want[k]) for k in keys}
+    # the recomputed absolute pose is the CSV's relative pose times the
+    # anchor pose in numpy, the eval phase's came from the card: the angle
+    # and the offset may differ in the last f32 digits
+    check(len(keys) >= 10 and all(errs[k] < 1e-6 for k in keys if k not in ("R error", "T error"))
+          and errs["R error"] < 1e-5 and errs["T error"] < 1e-5,
+          f"compute_metrics against the eval phase: {errs}")
+
+    nb = timed("null", lambda: null_baselines.main(base + ["compute_vsd=true", "--device",
+                                                           DEVICE]))
+    gt = nb["gt"]
+    check(gt["ADD(S)-0.1d"] == gt["MSSD"] == gt["MSPD"] == gt["VSD"] == 1.0,
+          f"null_baselines gt: {gt}")
+
+    sweep_args = base + ["exp_name=train_smoke", "compute_vsd=true", "--device", DEVICE]
+    ck = timed("ckpt_sweep", lambda: sweep_checkpoints.main(sweep_args))
+    epochs = [r["epoch"] for r in ck.rows]
+    check(epochs == [0, 1, 2], f"sweep_checkpoints epochs {epochs}")
+    for e, c in zip(epochs, ck.launches):
+        check(c["k1"] == 2 * layers and c["k2"] == 2 and sum(c.values()) == 2 * layers + 2,
+              f"sweep_checkpoints epoch {e}: launches {c}")
+    rt = timed("run_test", lambda: run_test_torch.main(sweep_args[:-2] + [
+        "eval.ckpt=2", "--device", DEVICE]))
+    single = rt.evaluator.get_means()
+    last = ck.rows[-1]
+    row_err = max(abs(last[k] - single[k]) for k in single)
+    check(set(single) <= set(last) and row_err < 1e-6,
+          f"the sweep's last row is {row_err:.2e} from run_test_torch on that checkpoint")
+
+    hp = timed("hparams", lambda: sweep_eval_hparams.main(
+        sweep_args + ["eval.ckpt=last", "--variants=;test.solver=ransac"]))
+    check([r["variant"] for r in hp.rows] == ["default", "test.solver=ransac"] and hp.epoch == 2,
+          f"sweep_eval_hparams rows {[r['variant'] for r in hp.rows]}, epoch {hp.epoch}")
+    for c in hp.launches:
+        check(c["k1"] == 2 * layers and c["k2"] == 2, f"sweep_eval_hparams launches {c}")
+
+    t0 = time.perf_counter()
+    fusion = _fusion_ablations(torch)
+    times["fusion"] = time.perf_counter() - t0
+    sweep_txt = "; ".join(f"epoch {e}: {s:.1f} s, K1 {c['k1']} K2 {c['k2']}, AR {r['AR']:.3f}"
+                          for e, s, c, r in zip(epochs, ck.seconds, ck.launches, ck.rows))
+    return {"line": (f"{smi_line}: make_pair_split (16 pairs) {times['split']:.1f} s on the "
+                     f"card, {times['split_cpu']:.1f} s on the CPU, instance lists byte-equal, "
+                     f"gt exact, {sp['differ']} of {sp['pairs']} pairs' matches differ ({sp['rows']} "
+                     f"rows, each within the f32 expansion's rounding, at most "
+                     f"{sp['eps_mm2']:.2f} mm^2, of a tie or the threshold); compute_metrics on the "
+                     f"eval CSV {times['metrics']:.1f} s: {len(keys)} metrics, largest "
+                     f"difference {max(errs.values()):.2e} (R error {errs['R error']:.2e} deg, "
+                     f"T error {errs['T error']:.2e} cm); null_baselines {times['null']:.1f} s: "
+                     f"gt recall 1, identity ADD(S) {nb['identity']['ADD(S)-0.1d']:.3f}; "
+                     f"sweep_checkpoints {times['ckpt_sweep']:.1f} s ({sweep_txt}), its last "
+                     f"row {row_err:.1e} from run_test_torch ({times['run_test']:.1f} s); "
+                     f"sweep_eval_hparams {times['hparams']:.1f} s: "
+                     + ", ".join(f"{r['variant']} {s:.1f} s AR {r['AR']:.3f}"
+                                 for r, s in zip(hp.rows, hp.seconds))
+                     + f"; fusion ablations in {times['fusion']:.1f} s, cosine vs f32 CPU: "
+                     + ", ".join(f"{k} {v:.6f}" for k, v in fusion.items())),
+            "times": times}
 
 
 def _full_train_model(torch, seed: int, train_towers: bool = False):
@@ -2738,9 +3000,13 @@ def main(argv=None) -> int:
         del pred
         phase_cli(torch, tmp, pd_dir, layers)
         torch.cuda.empty_cache()
-        phase_eval(torch, tmp, pd_dir, layers, dev["smi"])
+        eval_res = phase_eval(torch, tmp, pd_dir, layers, dev["smi"])
         torch.cuda.empty_cache()
         phase_train(torch, tmp, pd_dir, layers, dev["smi"])
+        torch.cuda.empty_cache()
+        trained_pd = phase_pointdsc_train(torch, tmp, layers, dev["smi"])["pd_dir"]
+        torch.cuda.empty_cache()
+        phase_tools(torch, tmp, trained_pd, layers, dev["smi"], eval_res)
         torch.cuda.empty_cache()
         phase_overfit(torch)
         torch.cuda.empty_cache()

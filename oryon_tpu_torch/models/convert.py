@@ -126,6 +126,34 @@ def save_flax_npz(path: str, variables: Mapping) -> None:
     np.savez(path, **flat)
 
 
+def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The inverse of ``from_jax_params`` for a module of Dense, norm and
+    BatchNorm layers and bare parameters (PointDSC): a state dict -> the
+    flax variable tree {"params": ..., "batch_stats": ...}.  Dense weight
+    [out, in] -> kernel [in, out]; norm weights -> scale; running mean /
+    var -> batch_stats mean / var; ``num_batches_tracked`` is dropped."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        *path, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        a = t.detach().cpu().numpy()
+        collection = "params"
+        if name in ("running_mean", "running_var"):
+            collection, name = "batch_stats", name[len("running_"):]
+        elif name == "weight" and a.ndim == 2:
+            a, name = a.T, "kernel"
+        elif name == "weight" and a.ndim == 1:
+            name = "scale"
+        elif name == "weight":
+            raise ValueError(f"to_jax_params: no flax layout for {key} {a.shape}")
+        node = out[collection]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return {k: v for k, v in out.items() if v}
+
+
 # ---- original torch state dicts -> flax-layout trees ------------------------
 def load_torch_state(path: str) -> Dict[str, np.ndarray]:
     """A published torch pickle (``.pth`` / ``.pkl``; a bare state dict or

@@ -1,4 +1,4 @@
-"""PointDSC registration (spectral matching + weighted Kabsch), eval mode.
+"""PointDSC registration (spectral matching + weighted Kabsch).
 
 Counterpart of ``oryon_tpu/models/pointdsc.py``, batched over pairs (the
 JAX package ``vmap``s one pair at a time): spatial-consistency matrix,
@@ -6,10 +6,17 @@ NonLocalNet (PointCN layers with SC-modulated attention), confidence head,
 parallel NMS seeds, per-seed kNN spectral matching with power iteration,
 quaternion Kabsch per seed, selection by inlier fitness and fixed-trip
 post-refinement.  Invalid rows are excluded everywhere, as there.  All f32.
+
+``forward(..., train=True)`` is the training mode of the port's
+``scripts/train_pointdsc.py``: BatchNorm normalises each problem (pair) by
+its own statistics over its N rows, padded rows included, as the JAX
+package's per-problem ``vmap`` does, and the running statistics move by
+flax's rule (momentum 0.99, biased variance), averaged over the problems.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -36,8 +43,13 @@ class PointDSCConfig:
     refine_iters: int = 20
 
 
+BN_MOMENTUM = 0.99    # flax's: running = momentum * running + (1 - momentum) * batch
+
+
 class BNDense(nn.Module):
-    """Dense + BatchNorm (running stats) + optional ReLU."""
+    """Dense + BatchNorm + optional ReLU.  Eval mode normalises by the
+    running statistics; ``train=True`` by each problem's own (x [B, N, C]:
+    statistics over N), and updates the running ones."""
 
     def __init__(self, in_dim: int, out_dim: int, relu: bool = True):
         super().__init__()
@@ -45,13 +57,29 @@ class BNDense(nn.Module):
         self.bn = nn.BatchNorm1d(out_dim, eps=1e-5)
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = x.shape
-        x = self.conv(x).reshape(-1, self.conv.weight.shape[0])
-        x = F.batch_norm(x, self.bn.running_mean, self.bn.running_var,
-                         self.bn.weight, self.bn.bias, False, 0.0, self.bn.eps)
-        x = x.reshape(*shape[:-1], -1)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.conv(x)
+        if train:
+            x = self._per_problem_norm(x)
+        else:
+            shape = x.shape
+            x = F.batch_norm(x.reshape(-1, shape[-1]), self.bn.running_mean,
+                             self.bn.running_var, self.bn.weight, self.bn.bias, False, 0.0,
+                             self.bn.eps).reshape(shape)
         return F.relu(x) if self.relu else x
+
+    def _per_problem_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's BatchNorm over the rows of each problem: the variance as
+        E[x^2] - E[x]^2 clipped at 0 (biased), y = (x - mean) * (scale *
+        rsqrt(var + eps)) + bias."""
+        bn = self.bn
+        mean = x.mean(dim=1)
+        var = torch.clamp((x * x).mean(dim=1) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        with torch.no_grad():
+            for run, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+                run.copy_((BN_MOMENTUM * run + (1.0 - BN_MOMENTUM) * batch.detach()).mean(0))
+        return (x - mean[:, None]) * mul[:, None] + bn.bias
 
 
 class NonLocalBlock(nn.Module):
@@ -66,12 +94,13 @@ class NonLocalBlock(nn.Module):
         self.fc3 = Dense(C // 2, C)
         self.channels = C
 
-    def forward(self, feat: torch.Tensor, attention: torch.Tensor) -> torch.Tensor:
+    def forward(self, feat: torch.Tensor, attention: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         """feat [B, N, C]; attention [B, N, N] spatial-consistency matrix."""
         Q, K, V = self.projection_q(feat), self.projection_k(feat), self.projection_v(feat)
         feat_attn = (Q @ K.transpose(-1, -2)) / (self.channels ** 0.5)
         weight = torch.softmax(attention * feat_attn, dim=-1)
-        return feat + self.fc3(self.fc2(self.fc1(weight @ V)))
+        return feat + self.fc3(self.fc2(self.fc1(weight @ V, train), train))
 
 
 class NonLocalNet(nn.Module):
@@ -83,11 +112,12 @@ class NonLocalNet(nn.Module):
             self.add_module(f"nonlocal_{i}", NonLocalBlock(cfg.num_channels))
         self.num_layers = cfg.num_layers
 
-    def forward(self, corr_feat: torch.Tensor, compat: torch.Tensor) -> torch.Tensor:
+    def forward(self, corr_feat: torch.Tensor, compat: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         feat = self.layer0(corr_feat)
         for i in range(self.num_layers):
-            feat = getattr(self, f"pointcn_{i}")(feat)
-            feat = getattr(self, f"nonlocal_{i}")(feat, compat)
+            feat = getattr(self, f"pointcn_{i}")(feat, train)
+            feat = getattr(self, f"nonlocal_{i}")(feat, compat, train)
         return feat
 
 
@@ -165,9 +195,14 @@ class PointDSC(nn.Module):
         self.cls2 = Dense(32, 32)
         self.cls3 = Dense(32, 1)
 
-    def forward(self, src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor):
+    def forward(self, src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
+                train: bool = False):
         """src/tgt [B, N, 3] matched points (metres); valid [B, N] 0/1.
-        Returns (T [B, 4, 4], inlier labels [B, N], confidence [B, N])."""
+        Returns (T [B, 4, 4], inlier labels [B, N], confidence [B, N]).
+
+        ``train=True`` returns the two training taps instead: the confidence
+        logits [B, N] before the validity mask, and the unit features
+        [B, N, C]; BatchNorm then runs on each problem's statistics."""
         c = self.cfg
         N = src.shape[1]
         src, tgt = src.float(), tgt.float()
@@ -180,10 +215,12 @@ class PointDSC(nn.Module):
         compat = torch.clamp(1.0 - (src_dist - tgt_dist) ** 2 / c.sigma_d ** 2, min=0.0)
         compat = compat * v[:, :, None] * v[:, None, :]
 
-        feats = self.encoder(corr_pos, compat)
+        feats = self.encoder(corr_pos, compat, train)
         fn = unit(feats)
         h = F.relu(self.cls2(F.relu(self.cls1(feats))))
         confidence = self.cls3(h)[..., 0]
+        if train:
+            return confidence, fn
         confidence = torch.where(v > 0, confidence,
                                  torch.full_like(confidence, float("-inf")))
         seeds = pick_seeds(src_dist, confidence, c.nms_radius, max(int(N * c.ratio), 1))
@@ -192,3 +229,23 @@ class PointDSC(nn.Module):
         warped = transform_pcd(src, T[:, :3, :3], T[:, :3, 3])
         labels = (torch.linalg.norm(warped - tgt, dim=-1) < c.inlier_threshold).float() * v
         return T, labels, confidence
+
+
+def get_pointdsc_pose(model: PointDSC, src: torch.Tensor, tgt: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One pair: src/tgt [N, 3], valid [N] (default all rows) -> T [4, 4]."""
+    if valid is None:
+        valid = torch.ones(src.shape[0], device=src.device)
+    with torch.inference_mode():
+        return model(src[None], tgt[None], valid[None])[0][0]
+
+
+def batched_pointdsc(model: PointDSC):
+    """The solver over [B, N, 3] correspondence batches: (src, tgt, valid)
+    -> (T, inlier labels, confidence).  The module is batched already; this
+    is the JAX package's entry point, in inference mode."""
+    def run(src, tgt, valid):
+        with torch.inference_mode():
+            return model(src, tgt, valid)
+
+    return run

@@ -284,19 +284,18 @@ def tiled_argmin_model(src, tgt, bad, tile: int = 128, splits: int = 1):
 
 def export_params_npz(epoch_dir: str) -> str:
     """Export the params tree of a checkpoint entry written by the JAX
-    package (orbax) to ``params.npz`` inside the same directory: a flat npz
-    of '/'-joined flax paths, the format the port's ``checkpoint.py`` reads.
-    Needs orbax and flax, so it lives with the tests, not in the port."""
+    package (orbax) to ``params.npz`` inside the same directory, with
+    ``scripts/export_params_npz.py`` (which needs orbax and flax, so it lives
+    outside the port)."""
+    import importlib.util
     import os
 
-    import orbax.checkpoint as ocp
-    from flax.traverse_util import flatten_dict
-
-    raw = ocp.PyTreeCheckpointer().restore(os.path.abspath(epoch_dir))
-    flat = flatten_dict(raw["params"])
-    out = os.path.join(epoch_dir, "params.npz")
-    np.savez(out, **{"/".join(k): np.asarray(v) for k, v in flat.items()})
-    return out
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "export_params_npz.py")
+    spec = importlib.util.spec_from_file_location("export_params_npz", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.export_entry(epoch_dir)
 
 
 # Port module name -> name in the original torch checkpoint, as regular

@@ -5,6 +5,7 @@ the inference pipeline.  Counterpart of ``bench.py``.
     python3 bench_torch.py                      # on the card, full model
     python3 bench_torch.py --rounds 3 --iters 5
     python3 bench_torch.py --device cpu --size tiny --rounds 1 --iters 1
+    python3 bench_torch.py --trace=DIR          # + a profiler trace, see below
 
 Runs ``pipeline.make_run_fn`` at production shapes: B=8 pairs of 224² RGB,
 480x640 depth, 80 prompts x 77 tokens encoded once outside the timed loop
@@ -32,6 +33,13 @@ Prints one JSON line last: {"metric", "value" (the headline's median),
 "icp_on_variant"), "bf16_parity_variant", "ransac_variant", "min", "max",
 "stage_ms", "launches", "device", "rounds", "iters", "size"}.  On the CPU
 no kernel launches and ``stage_ms`` is null.  Any failure exits non-zero.
+
+``--trace=DIR`` (the counterpart of ``bench.py --trace``): after the timed
+rounds, ``torch.profiler`` (CPU and CUDA activities) records
+``TRACE_BATCHES`` warm batches of the headline on its inputs, the last one
+synchronised; DIR gets the Chrome trace ``bench_trace.json`` and the table
+``bench_trace.txt`` of the operations that took the most device time.  The
+timed numbers and the JSON line are those of a run without it.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ B = 8
 IMG, DEPTH_HW = 224, (480, 640)
 CAMERA = [591.0125, 0, 322.525, 0, 590.16775, 244.11084, 0, 0, 1]
 STAGES = ("forward", "match", "solve", "icp", "pack")
+TRACE_BATCHES = 10
 
 
 def make_inputs(model, device):
@@ -107,6 +116,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", metavar="DIR",
+                    help="also write a profiler trace of warm headline batches to DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -187,6 +198,13 @@ def main(argv=None) -> dict:
                         stage_ms[name].append(e0.elapsed_time(e1))
                     span += marks[0].elapsed_time(marks[-1])
                 stage_ms["outside"].append((dt * 1e3 - span) / args.iters)
+
+    if args.trace:
+        from oryon_tpu_torch.utils.profiling import activities, write_trace
+        with torch.profiler.profile(activities=activities()) as prof:
+            run_batches(variants["value"], TRACE_BATCHES)
+        table = write_trace(prof, args.trace, "bench_trace")
+        print(f"trace: {TRACE_BATCHES} warm headline batches, table {table}", flush=True)
 
     line = {"metric": "e2e_image_pairs_per_sec", "unit": "pairs/s",
             "solver": "pointdsc", "quant": resolve_quant(args.size, "int8"),

@@ -74,7 +74,15 @@ Phases, each printing one line with its result and its time:
                a batch timed;
                debug_valid (ground-truth correspondences, no K2) and
                nn_correspondences_anchors (one K2 launch) on one batch
- 14. train     run_train_torch.main at full width (bf16 towers, K1 fused,
+ 14. native    the port's C++ host library (oryon_tpu_torch/native/) built
+               into an empty directory; at 480 x 640 -> 224 x 224 its RLE and
+               nearest resize equal their plain versions and its bilinear
+               resize is within 1 LSB of its plain version (differing bytes
+               counted); host ms a call of each; the trainer's loader alone
+               over the train tree (B=32, uint8 RGB cache), with the library
+               and with the plain versions in turns, each batch's host time
+               split into reading, augmenting and collating
+ 15. train     run_train_torch.main at full width (bf16 towers, K1 fused,
                B=32, device augmentation, the prompt cache) over a 64-pair
                ShapeNet6D-format tree it writes (480 x 640, synthetic_pair):
                2 epochs of 2 steps with validation on the eval phase's tree
@@ -83,13 +91,13 @@ Phases, each printing one line with its result and its time:
                optimizer state and LR; steps from the loader split into
                loader wait, augment, forward + loss, backward and optimizer;
                pairs/s trained; peak memory
- 15. pointdsc_train  oryon_tpu_torch.scripts.train_pointdsc at its defaults
+ 16. pointdsc_train  oryon_tpu_torch.scripts.train_pointdsc at its defaults
                (6 layers, n=256, B=8, lr 1e-4) for 300 steps: the BCE falls,
                the inlier accuracy ends above 0.6, the median step is timed;
                the written native.npz loads through build_pointdsc_solver,
                registers a known rigid pair on the card as on the CPU, and
                serves one batch of 8 at full width (K1 24, K2 1)
- 16. tools     the offline tools over the eval and train phases' trees:
+ 17. tools     the offline tools over the eval and train phases' trees:
                make_pair_split (16 pairs) on the card against the CPU;
                compute_metrics on the eval phase's CSV against its metrics;
                null_baselines (the ground truth scores recall 1);
@@ -98,30 +106,30 @@ Phases, each printing one line with its result and its time:
                run_test_torch on that checkpoint); sweep_eval_hparams with
                two variants; each fusion ablation at full width in bf16
                against its f32 CPU run (cosine > 0.999)
- 17. overfit   10 AdamW steps at full width on one synthetic batch of 8 with
+ 18. overfit   10 AdamW steps at full width on one synthetic batch of 8 with
                the same draws each step: the loss falls
- 18. train_towers  2 steps at full width, B=32, with the vision and Swin
+ 19. train_towers  2 steps at full width, B=32, with the vision and Swin
                towers trained: K1 24 + 24 (recomputed) a step, gradients in
                both towers and none in the text tower, peak memory; the
                step's fusion/decoder gradient against the einsum tower's
                (cosine > 0.999, loss within 1e-2); attn_impl=flash raises in
                backward; K1's backward (autograd through the plain version)
                at [64, 577, 3072] timed against SDPA's backward
- 19. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
+ 20. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
                train step over make_mesh(-1, 1) (gradient all-reduce, global
                loss normaliser, global draws) equals the plain step bitwise
                at full width, B=32; both timed in turns
- 20. dp2       two gloo ranks spawned on the one card (NCCL refuses two ranks
+ 21. dp2       two gloo ranks spawned on the one card (NCCL refuses two ranks
                on one GPU), mesh.data=2: 3 steps with run_train.py's defaults
                at B=32 (16 a rank) against one device on the same batches and
                draws (losses within rel 1e-3, fusion/decoder gradient cosine
                above 0.9999); a served batch of 8 (4 a rank) bitwise one
                device's runs of each rank's pairs with the same draws; K1 and
                K2 launches per rank
- 21. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
+ 22. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
                tower and featmaps against the unsharded model's (cosine above
                0.999), served masks; K1 at 8 heads a rank
- 22. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
+ 23. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -1997,13 +2005,23 @@ def phase_eval(torch, tmp, pd_dir, layers, smi_line):
 
 
 TRAIN_PAIRS, TRAIN_BATCH = 64, 32   # two steps an epoch at the trainer's default B
+TRAIN_NAME = "shapenet6d_smoke"
 TRAIN_REPEATS, TRAIN_FILL = 8, 3    # timed steps: the tree 8 times over, 3 fill steps
 OVERFIT_BATCH, OVERFIT_STEPS = 8, 10
 GRAD_COS_BOUND, GRAD_LOSS_TOL = 0.999, 1e-2   # fused vs einsum tower (bf16 logits there)
 
 
+def write_train_tree(tmp) -> dict:
+    """The train phase's ShapeNet6D-format tree, written once for the native
+    and train phases: its pair count and the seconds it took."""
+    t0 = time.perf_counter()
+    pairs = write_shapenet6d_tree(os.path.join(tmp, TRAIN_NAME), np.random.RandomState(31),
+                                  TRAIN_PAIRS)
+    return {"pairs": pairs, "seconds": time.perf_counter() - t0}
+
+
 def _train_argv(tmp, pd_dir, *extra):
-    return [f"dataset.root={tmp}", "dataset.train.name=shapenet6d_smoke",
+    return [f"dataset.root={tmp}", f"dataset.train.name={TRAIN_NAME}",
             f"dataset.train.split={TRAIN_SPLIT}", "dataset.test.name=nocs_smoke",
             f"dataset.test.split={EVAL_SPLIT}", "model.size=full", "model.attn_impl=fused",
             "model.train_quant=none", f"dataset.batch_size={TRAIN_BATCH}",
@@ -2070,15 +2088,180 @@ def _split_steps(torch, tr):
             "whole_pairs_s": len(rows) * TRAIN_BATCH / whole}
 
 
+NATIVE_VIEW, NATIVE_OUT = (480, 640), (224, 224)   # a loader view, the model's input
+NATIVE_CALLS = 20                 # timed calls of a resize a version and round
+NATIVE_ROUNDS = 3                 # loader passes a version, interleaved
+
+
+@contextlib.contextmanager
+def _loader_parts(ds, plain: bool):
+    """While open, the loader worker's seconds reading (the reader's
+    ``get_item``), augmenting (``augment_pair``) and collating are summed in
+    the yielded dict, with the calls of the two uint8 resizes that
+    ``data/augment.py`` sends to the library; with ``plain`` the numpy plain
+    versions stand in for the library there (the parent's data path)."""
+    from oryon_tpu_torch.data import datasets
+    from oryon_tpu_torch.utils import native
+    acc = {"read": 0.0, "augment": 0.0, "collate": 0.0, "bilinear": 0, "nearest": 0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return run
+
+    def counted(key, fn):
+        def run(*a, **kw):
+            acc[key] += 1
+            return fn(*a, **kw)
+        return run
+
+    saved = [(datasets, "augment_pair"), (native, "resize_bilinear_u8"),
+             (native, "resize_nearest_u8")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    datasets.augment_pair = timed("augment", datasets.augment_pair)
+    native.resize_bilinear_u8 = counted("bilinear", native.resize_bilinear_plain if plain
+                                        else native.resize_bilinear_u8)
+    native.resize_nearest_u8 = counted("nearest", native.resize_nearest_plain if plain
+                                       else native.resize_nearest_u8)
+    ds.reader.get_item = timed("read", ds.reader.get_item)
+    ds.collate = timed("collate", ds.collate)
+    try:
+        yield acc
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        del ds.reader.get_item, ds.collate
+
+
+def _loader_pass(ds) -> list:
+    """Host ms of each batch of one ``PrefetchLoader`` pass as the trainer
+    makes it (B=32, shuffled, ``train=True``), the consumer taking each batch
+    as it arrives: the worker's time a batch."""
+    from oryon_tpu_torch.data.loader import PrefetchLoader
+    ms, t0 = [], time.perf_counter()
+    for _ in PrefetchLoader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, seed=0,
+                            train=True):
+        t1 = time.perf_counter()
+        ms.append((t1 - t0) * 1e3)
+        t0 = t1
+    return ms
+
+
+def _host_ms(fn, *args) -> float:
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_CALLS):
+        fn(*args)
+    return (time.perf_counter() - t0) * 1e3 / NATIVE_CALLS
+
+
+@phase("native")
+def phase_native(torch, tmp, pd_dir, smi_line, tree):
+    import types
+
+    import run_train_torch
+    from oryon_tpu_torch.config import load_config
+    from oryon_tpu_torch.models.clip import ClipTextConfig
+    from oryon_tpu_torch.models.fusion import FusionConfig
+    from oryon_tpu_torch.utils import native
+
+    # the library from the port's own source, built into an empty directory
+    here = os.path.dirname(os.path.abspath(__file__))
+    check(os.path.relpath(native.SOURCE, here) == "oryon_tpu_torch/native/oryon_native.cpp",
+          f"the library's source is {native.SOURCE}")
+    build = os.path.join(tmp, "host_build")
+    os.makedirs(build)
+    native.BUILD_DIR, native._lib = build, None
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    built = os.listdir(build)
+    check(len(built) == 1 and built[0].startswith("liboryon_native_")
+          and built[0].endswith(".so"), f"the build left {built}")
+
+    # codecs and resizes against the plain versions at the loader's sizes
+    rs = np.random.RandomState(41)
+    mask = (rs.rand(*NATIVE_VIEW) > 0.7).astype(np.uint8)
+    runs = native.rle_encode(mask)
+    check(np.array_equal(runs, native.rle_encode_plain(mask))
+          and np.array_equal(native.rle_decode(runs, mask.shape), mask)
+          and np.array_equal(native.rle_decode_plain(runs, mask.shape), mask),
+          "RLE differs from the plain version or does not round-trip")
+    check(np.array_equal(native.resize_nearest_u8(mask, NATIVE_OUT),
+                         native.resize_nearest_plain(mask, NATIVE_OUT)),
+          "the nearest resize differs from the plain version")
+    view = (rs.rand(*NATIVE_VIEW, 3) * 256).astype(np.uint8)
+    gray = (rs.rand(*NATIVE_VIEW) * 256).astype(np.uint8)
+    diff = {}
+    for name, img in (("view", view), ("2-D", gray)):
+        got = native.resize_bilinear_u8(img, NATIVE_OUT).astype(int)
+        ref = native.resize_bilinear_plain(img, NATIVE_OUT).astype(int)
+        check(got.shape == ref.shape and np.abs(got - ref).max() <= 1,
+              f"bilinear {name}: more than 1 LSB from the plain version")
+        diff[name] = (int((got != ref).sum()), got.size)
+    host = {k: [] for k in ("lib view", "plain view", "lib mask", "plain mask")}
+    for _ in range(NATIVE_ROUNDS):
+        host["lib view"].append(_host_ms(native.resize_bilinear_u8, view, NATIVE_OUT))
+        host["plain view"].append(_host_ms(native.resize_bilinear_plain, view, NATIVE_OUT))
+        host["lib mask"].append(_host_ms(native.resize_nearest_u8, mask, NATIVE_OUT))
+        host["plain mask"].append(_host_ms(native.resize_nearest_plain, mask, NATIVE_OUT))
+    host = {k: float(np.median(v)) for k, v in host.items()}
+
+    # the loader alone over the train tree, as the trainer builds it (uint8
+    # RGB cache, host augmentation off, collate to the device), with the
+    # library and with the plain versions in turns
+    overrides = [a for a in _train_argv(tmp, pd_dir) if "=" in a and not a.startswith("--")]
+    cfg = load_config(None, overrides)
+    dims = types.SimpleNamespace(text_cfg=ClipTextConfig(), fusion_cfg=FusionConfig())
+    ds, _ = run_train_torch._datasets(cfg, dims, torch.device(DEVICE),
+                                      bool(cfg.augs.rgb.device))
+    check(ds.reader._rgb_u8 and len(ds) == tree["pairs"],
+          "the training reader does not cache RGB as uint8")
+    _loader_pass(ds)                  # fills the reader's cache, as an epoch does
+    parts = ("read", "augment", "collate")
+    res = {m: {"ms": [], **{k: [] for k in parts}} for m in ("library", "plain")}
+    for mode in ("library", "plain", "plain", "library", "library", "plain"):
+        with _loader_parts(ds, plain=mode == "plain") as acc:
+            ms = _loader_pass(ds)
+        check(acc["bilinear"] == acc["nearest"] == 2 * len(ms) * TRAIN_BATCH,
+              f"{mode}: {acc['bilinear']} bilinear and {acc['nearest']} nearest uint8 "
+              f"resizes for {len(ms)} batches of {TRAIN_BATCH} pairs")
+        res[mode]["ms"] += ms
+        for k in parts:
+            res[mode][k].append(acc[k] * 1e3 / len(ms))
+    loader = {}
+    for mode, r in res.items():
+        med = {k: float(np.median(r[k])) for k in ("ms", *parts)}
+        med["rest"] = med["ms"] - sum(med[k] for k in parts)
+        loader[mode] = med
+
+    def split(m):
+        return (f"{m['ms']:.1f} ms a batch = read {m['read']:.1f} + augment "
+                f"{m['augment']:.1f} + collate {m['collate']:.1f} + rest {m['rest']:.1f}")
+    return {"line": (f"{smi_line}: library built from oryon_tpu_torch/native/ into an empty "
+                     f"directory in {build_s:.2f} s; RLE of a 480x640 mask ({len(runs)} runs) "
+                     f"and the nearest resize equal the plain versions; bilinear to 224x224 "
+                     f"within 1 LSB of the plain version, {diff['view'][0]} of "
+                     f"{diff['view'][1]} bytes differ (480x640x3 view), {diff['2-D'][0]} of "
+                     f"{diff['2-D'][1]} (480x640 2-D); host ms a call, library / plain: "
+                     f"bilinear view {host['lib view']:.3f} / {host['plain view']:.3f}, "
+                     f"nearest mask {host['lib mask']:.3f} / {host['plain mask']:.3f}; "
+                     f"the loader alone (PrefetchLoader, B={TRAIN_BATCH}, train=True, uint8 "
+                     f"RGB cache, {len(ds) // TRAIN_BATCH} batches a pass, {NATIVE_ROUNDS} "
+                     f"passes a version in turns, medians): library {split(loader['library'])}"
+                     f"; plain {split(loader['plain'])}"),
+            "loader": loader, "host": host, "diff": diff}
+
+
 @phase("train")
-def phase_train(torch, tmp, pd_dir, layers, smi_line):
+def phase_train(torch, tmp, pd_dir, layers, smi_line, tree):
     import run_train_torch
     from oryon_tpu_torch.train import cosine_lr
-    name = "shapenet6d_smoke"
-    t0 = time.perf_counter()
-    n_pairs = write_shapenet6d_tree(os.path.join(tmp, name), np.random.RandomState(31),
-                                    TRAIN_PAIRS)
-    tree_s = time.perf_counter() - t0
+    name = TRAIN_NAME
+    n_pairs, tree_s = tree["pairs"], tree["seconds"]
     steps = n_pairs // TRAIN_BATCH
     valid_batches = -(-len(EVAL_PAIRS) * len(EVAL_CLASSES) // TRAIN_BATCH)
     t0 = time.perf_counter()
@@ -3002,7 +3185,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         eval_res = phase_eval(torch, tmp, pd_dir, layers, dev["smi"])
         torch.cuda.empty_cache()
-        phase_train(torch, tmp, pd_dir, layers, dev["smi"])
+        tree = write_train_tree(tmp)
+        phase_native(torch, tmp, pd_dir, dev["smi"], tree)
+        phase_train(torch, tmp, pd_dir, layers, dev["smi"], tree)
         torch.cuda.empty_cache()
         trained_pd = phase_pointdsc_train(torch, tmp, layers, dev["smi"])["pd_dir"]
         torch.cuda.empty_cache()

@@ -8,8 +8,10 @@ The port's own copy of ``oryon_tpu/data/augment.py`` (numpy, host only):
     correspondences rescaled.
 
 ``resize_only`` is the evaluation path; ``augment_pair`` is kept for
-training.  The uint8 resizes run the numpy code (the JAX package's ctypes
-fast path is not carried over).
+training.  As in the JAX package, uint8 bilinear resizes (the training views
+under the uint8 RGB cache) and 2-D uint8 nearest resizes (every mask) run in
+the port's C++ library (``utils/native.py``); the rest run its numpy plain
+versions ``resize_bilinear_plain`` / ``resize_nearest_plain``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
+
+from oryon_tpu_torch.utils import native
 
 
 @dataclasses.dataclass
@@ -83,42 +87,23 @@ def color_jitter(rs: np.random.RandomState, img: np.ndarray,
 
 
 def resize_bilinear(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """Half-pixel bilinear resize of [H, W(, C)] arrays."""
-    H, W = img.shape[:2]
-    OH, OW = out_hw
-    if (H, W) == (OH, OW):
+    """Half-pixel bilinear resize of [H, W(, C)] arrays; uint8 through the
+    C++ library (f32, rounded half up)."""
+    if tuple(img.shape[:2]) == tuple(out_hw):
         # identity: at half-pixel alignment every weight is 0/1 and the
         # gather reproduces the input
         return img
-    ys = (np.arange(OH) + 0.5) * H / OH - 0.5
-    xs = (np.arange(OW) + 0.5) * W / OW - 0.5
-    y0 = np.clip(np.floor(ys).astype(int), 0, H - 1)
-    x0 = np.clip(np.floor(xs).astype(int), 0, W - 1)
-    y1 = np.clip(y0 + 1, 0, H - 1)
-    x1 = np.clip(x0 + 1, 0, W - 1)
-    wy = np.clip(ys - y0, 0, 1)[:, None]
-    wx = np.clip(xs - x0, 0, 1)[None, :]
-    if img.ndim == 3:
-        wy = wy[..., None]
-        wx = wx[..., None]
-    a = img[np.ix_(y0, x0)]
-    b = img[np.ix_(y0, x1)]
-    c = img[np.ix_(y1, x0)]
-    d = img[np.ix_(y1, x1)]
-    out = (a * (1 - wy) * (1 - wx) + b * (1 - wy) * wx
-           + c * wy * (1 - wx) + d * wy * wx)
-    if np.issubdtype(img.dtype, np.integer):
-        # round, don't truncate (the f32 resize-then-quantise wire format)
-        out = np.rint(out)
-    return out.astype(img.dtype)
+    if img.dtype == np.uint8:
+        return native.resize_bilinear_u8(img, out_hw)
+    return native.resize_bilinear_plain(img, out_hw)
 
 
 def resize_nearest(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    H, W = img.shape[:2]
-    OH, OW = out_hw
-    ys = np.floor(np.arange(OH) * H / OH).astype(int)
-    xs = np.floor(np.arange(OW) * W / OW).astype(int)
-    return img[np.ix_(ys, xs)]
+    """Nearest resize (index ``floor(i * in / out)``); 2-D uint8 (masks)
+    through the C++ library."""
+    if img.dtype == np.uint8 and img.ndim == 2:
+        return native.resize_nearest_u8(img, out_hw)
+    return native.resize_nearest_plain(img, out_hw)
 
 
 def augment_pair(

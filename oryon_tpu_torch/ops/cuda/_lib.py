@@ -3,7 +3,7 @@
 Every ``*.cu`` file in ``oryon_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``), one ``nvcc`` per source and all started together, and
 the objects are linked into one shared library with a plain C interface,
-which is loaded with ``ctypes``.  The library lands in
+which is loaded with ``ctypes`` (``utils/shlib.py``).  The library lands in
 ``build/oryon_tpu_torch/`` at the root of the checkout, named by a hash of
 the sources (``*.cu`` and ``*.cuh``) and flags, so an edited source is
 rebuilt on first use and an unchanged one is reused.
@@ -15,19 +15,18 @@ from __future__ import annotations
 
 import ctypes
 import glob
-import hashlib
 import os
 import shutil
 import subprocess
 import threading
-import time
 from typing import Optional
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "oryon_tpu_torch")
+from oryon_tpu_torch.utils.shlib import BUILD_DIR, build_and_load
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                    "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -82,7 +81,7 @@ def _build(srcs, so: str) -> str:
     """Compile each ``.cu`` of ``srcs`` to an object, all at once, and link
     them into ``so``.  Returns the compilers' output (the ptxas lines)."""
     nvcc = _nvcc()
-    tag = f"{os.path.basename(so)[:-3]}.{os.getpid()}"
+    tag = os.path.basename(so)
     objs, procs = [], []
     for s in (s for s in srcs if s.endswith(".cu")):
         obj = os.path.join(BUILD_DIR, f"{tag}.{os.path.basename(s)[:-3]}.o")
@@ -99,13 +98,11 @@ def _build(srcs, so: str) -> str:
     try:
         if failed:
             raise RuntimeError("nvcc failed on " + "\n".join(failed))
-        tmp = f"{so}.{os.getpid()}.tmp"
-        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+        res = subprocess.run([nvcc, "-shared", "-o", so, *objs],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
     finally:
         for obj in objs:
             if os.path.exists(obj):
@@ -120,25 +117,21 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         srcs = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        key = " ".join(NVCC_FLAGS).encode()
         for s in srcs:
             with open(s, "rb") as f:
-                h.update(os.path.basename(s).encode() + f.read())
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"liboryon_kernels_{h.hexdigest()[:16]}.so")
+                key += os.path.basename(s).encode() + f.read()
+        built = {}
+
+        def build(tmp):
+            built["ptxas"] = _build(srcs, tmp)
+        lib, so, seconds = build_and_load(
+            BUILD_DIR, "liboryon_kernels", key, build,
+            {name: (ctypes.c_int, argtypes) for name, argtypes in SIGNATURES.items()})
         log = so[:-3] + ".ptxas.txt"
-        seconds = 0.0
-        if not os.path.exists(so):
-            t0 = time.perf_counter()
-            ptxas = _build(srcs, so)
-            seconds = time.perf_counter() - t0
+        if "ptxas" in built:
             with open(log, "w") as f:
-                f.write(ptxas)
-        lib = ctypes.CDLL(so)
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+                f.write(built["ptxas"])
         ptxas = ""
         if os.path.exists(log):
             with open(log) as f:

@@ -13,14 +13,18 @@ from typing import Optional
 import torch
 
 
-def _activities():
+def activities():
+    """CPU, and CUDA where there is a card."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return acts
 
 
-def _write(prof, logdir: str, name: str) -> str:
+def write_trace(prof, logdir: str, name: str) -> str:
+    """``<logdir>/<name>.json`` (Chrome trace) and ``<name>.txt`` (the 40
+    operations that took the most self time, device time on a card);
+    returns the table's path."""
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, f"{name}.json"))
     key = "self_cuda_time_total" if torch.cuda.is_available() else "self_cpu_time_total"
@@ -50,7 +54,7 @@ class StepProfiler:
         if not self.enabled:
             return
         if self._i == self.start:
-            self._prof = torch.profiler.profile(activities=_activities())
+            self._prof = torch.profiler.profile(activities=activities())
             self._prof.__enter__()
         elif self._i == self.stop:
             self._finish()
@@ -61,7 +65,7 @@ class StepProfiler:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self._prof.__exit__(None, None, None)
-            path = _write(self._prof, self.logdir, "steps")
+            path = write_trace(self._prof, self.logdir, "steps")
             self._prof = None
             self.enabled = False
             print(f"profiler: wrote a {self.n_steps}-step trace to {self.logdir} "

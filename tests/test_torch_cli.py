@@ -236,3 +236,25 @@ def test_bench_torch_prints_its_line_on_the_cpu(capsys, monkeypatch):
     assert set(line["min"]) == set(line["max"]) == set(variants)
     assert line["stage_ms"] is None and line["device"] == "cpu"
     assert line["launches"] == dict.fromkeys(("k1", "k1i8", "k2", "k3", "k4", "k5"), 0)
+
+
+def test_bench_torch_trace_writes_a_trace_on_the_cpu(capsys, monkeypatch, tmp_path):
+    """``--trace=DIR``: after the timed rounds, a profiled window of warm
+    headline batches (one here) leaves the Chrome trace and the operation
+    table in DIR; the last line is still the bench's JSON line."""
+    import bench_torch
+    from oryon_tpu_torch import config as tcfg
+
+    real = tcfg.TestConfig
+    monkeypatch.setattr(tcfg, "TestConfig", lambda: real(icp_points=64, icp_iters=2))
+    monkeypatch.setattr(bench_torch, "TRACE_BATCHES", 1)
+    out = str(tmp_path / "trace")
+    line = bench_torch.main(["--device", "cpu", "--size", "tiny", "--rounds", "1",
+                             "--iters", "1", f"--trace={out}"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == line and lines[-2].startswith("trace: 1 warm headline")
+    assert sorted(os.listdir(out)) == ["bench_trace.json", "bench_trace.txt"]
+    with open(os.path.join(out, "bench_trace.json")) as f:
+        assert json.load(f)["traceEvents"]
+    with open(os.path.join(out, "bench_trace.txt")) as f:
+        assert "Self CPU" in f.read()

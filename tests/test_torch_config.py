@@ -186,7 +186,9 @@ PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "oryon_tpu_torch", "**", "*.py"
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_file_imports_nothing_of_jax(path):
     """No file of the port imports jax, flax, orbax or the JAX package, by
-    import statement or by a path that reaches into ``oryon_tpu/``."""
+    import statement or by a path that reaches into ``oryon_tpu/``; nor
+    builds from the JAX package's ``native/`` (its Makefile, its library):
+    only ``utils/native.py`` joins a ``native`` directory, the port's own."""
     mods, joins = _imports_and_joins(path)
     for m in mods:
         top = m.split(".")[0]
@@ -194,6 +196,16 @@ def test_port_file_imports_nothing_of_jax(path):
     for s in joins:
         parts = s.replace("\\", "/").split("/")
         assert "oryon_tpu" not in parts and not s.startswith("oryon_tpu."), (path, s)
+        if "native" in parts:
+            assert os.path.relpath(path, ROOT) == os.path.join("oryon_tpu_torch", "utils",
+                                                               "native.py"), (path, s)
+    with open(path) as f:
+        consts = [n.value for n in ast.walk(ast.parse(f.read(), path))
+                  if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    assert not [c for c in consts if c in ("make", "Makefile") or "liboryon_native.so" in c], path
+    if path.endswith(os.path.join("utils", "native.py")):
+        from oryon_tpu_torch.utils import native
+        assert native.SOURCE == os.path.join(ROOT, "oryon_tpu_torch", "native", "oryon_native.cpp")
 
 
 def test_port_has_no_host_loader():

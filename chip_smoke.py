@@ -9,9 +9,9 @@
 Phases, each printing one line with its result and its time:
   1. device    the card (torch and nvidia-smi); fails without CUDA
   2. build     nvcc builds the kernels from oryon_tpu_torch/csrc/; the
-               machine code of the wgmma kernels (attention, matcher, window
-               attention) holds tensor-core (HGMMA; IGMMA for K1-i8's int8
-               logits) and TMA-load instructions
+               machine code of the wgmma kernels (attention, the matcher's two
+               modes, window attention) holds tensor-core (HGMMA, also for
+               TF32; IGMMA for K1-i8's int8 logits) and TMA-load instructions
   3. k1        fused attention kernel (wgmma, head dim 64) vs its plain
                version at the ViT-L shape, at a tensor-parallel rank's
                [16, 577, 1536] with 8 heads and the data-parallel ranks'
@@ -34,12 +34,16 @@ Phases, each printing one line with its result and its time:
                WMMA kernel); the pre-pass alone gives its plain version's
                fragments exactly; pre-pass and attention kernel timed apart
   7. k2        masked-argmin kernels vs their plain version at the serving
-               shape and at a data-parallel rank's 4 pairs: fp32 (CUDA cores)
-               and bf16 (compacting pre-pass + wgmma),
-               40% and 95% of the targets excluded, ragged sizes, pairs with
-               all / all but one / no target excluded, duplicated targets; the
-               pre-pass against torch.nonzero; pre-pass and main kernel timed
-               apart
+               shape and at a data-parallel rank's 4 pairs, in both modes:
+               bf16 (compacting pre-pass + bf16 wgmma) and fp32 (compacting
+               and splitting pre-pass + split-TF32 wgmma), 40% and 95% of the
+               targets excluded, ragged sizes, pairs with all / all but one /
+               no target excluded, duplicated targets; each pre-pass against
+               torch.nonzero and its plain version (bf16 rows;
+               split_tf32_plain's hi / lo rows, bitwise); pre-pass and main
+               kernel timed apart; the fp32 mode timed beside the CUDA-core
+               kernel it replaces, with its two bounds (3 x TF32, f32 CUDA
+               cores)
   8. register  Kabsch, RANSAC, PointDSC and ICP recover a known rigid
                transform in full f32 (catches TF32 in the pose math); the
                poses are scored on the card with the port's rotation /
@@ -49,7 +53,10 @@ Phases, each printing one line with its result and its time:
                show the main path went through K1 and K2
  10. serve_optin  the same predictor switched to (fused_i8qk, Swin band) and
                to (flash, Swin pallas): one counted batch of 8 each, through
-               K1-i8 + K4 and K5 + K3; then the small model (f32 towers)
+               K1-i8 + K4 and K5 + K3; serve_fp32: a strict-parity run, the
+               served model's pipeline with MatchParams(precision="fp32") on
+               a batch of 8 beside the default on the same draws (K1 24, K2
+               fp32 1, masks equal); then the small model (f32 towers)
                answers 2 requests through K1's f32 mode and K2
  11. ckpt      the served model is saved with the port's save_checkpoint into
                a temporary experiment; OryonPredictor.from_config (another
@@ -168,7 +175,7 @@ SWIN_IMAGES, SWIN_WINDOW = 16, 7
 KERNEL_TOL = 2e-2                 # bf16 outputs: about one ulp at |x| in [2, 4)
 # published dense peaks of one H100 SXM: bytes/s of HBM3, operations/s by type
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 ROT_TOL, TRANS_TOL = 1e-3, 1e-4   # registration: rad, m
 ADD_TOL = 1e-4                    # ADD and ADD-S of a recovered pose, m
 TIMED_LAUNCHES = 20               # per kernel timing run (K2's CUDA-core kernel: 3)
@@ -333,7 +340,7 @@ SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")   # bf16 wgmma, int8 wgmma, TMA tile lo
 
 def _sass_counts(nvcc: str, lib_path: str):
     """Per wgmma kernel in the built library (the attention kernel's three
-    modes, the matcher's and the window attention's two), how many
+    modes, the matcher's two and the window attention's two), how many
     instructions of each of SASS_OPS its machine code holds; None where the
     toolkit has no cuobjdump."""
     import os
@@ -348,7 +355,7 @@ def _sass_counts(nvcc: str, lib_path: str):
     for chunk in out.stdout.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
         if any(k in name for k in ("attn_wgmma_kernel", "match_wgmma_kernel",
-                                   "swin_wgmma_kernel")):
+                                   "match_tf32_kernel", "swin_wgmma_kernel")):
             counts[name] = tuple(chunk.count(op) for op in SASS_OPS)
     return counts
 
@@ -366,12 +373,14 @@ def phase_build():
     sass = _sass_counts(_lib._nvcc(), info["path"])
     if sass is not None:
         # attn_wgmma_kernel<mode, ...>: 0 K1, 1 K5, 2 K1-i8 (int8 Q K^T, bf16
-        # P V); match_wgmma_kernel: K2; swin_wgmma_kernel<band, ...>: false
-        # K3, true K4.  All load their tiles by TMA.
+        # P V); match_wgmma_kernel: K2 bf16; match_tf32_kernel: K2 fp32 (TF32
+        # products, HGMMA too); swin_wgmma_kernel<band, ...>: false K3, true
+        # K4.  All load their tiles by TMA.
         want = {"K1": ("attn_wgmma_kernelILi0E", ("HGMMA",)),
                 "K5": ("attn_wgmma_kernelILi1E", ("HGMMA",)),
                 "K1-i8": ("attn_wgmma_kernelILi2E", ("HGMMA", "IGMMA")),
                 "K2": ("match_wgmma_kernel", ("HGMMA",)),
+                "K2 fp32": ("match_tf32_kernel", ("HGMMA",)),
                 "K3": ("swin_wgmma_kernelILb0E", ("HGMMA",)),
                 "K4": ("swin_wgmma_kernelILb1E", ("HGMMA",))}
         check(len(sass) == len(want), f"wgmma kernels in the library: {sorted(sass)}")
@@ -866,6 +875,45 @@ def _blob_mask(torch, P, side, keep_frac):
     return bad.reshape(P, -1)
 
 
+def _k2_prepass(torch, mk, src, tgt, bad, prec: str, reference) -> None:
+    """A mode's pre-pass alone against torch.nonzero: counts and index map
+    exactly, the kept rows bitwise ``reference(rows of pair p)``'s; then its
+    main kernel alone gives the one call's result."""
+    scratch = mk._scratch(src, tgt, prec)
+    o_min, o_arg = (torch.empty(src.shape[:2], dtype=dt, device=DEVICE)
+                    for dt in (torch.float32, torch.int32))
+    mk.run_phases(src, tgt, bad, mk.COMPACT, scratch, o_min, o_arg, prec)
+    torch.cuda.synchronize()
+    rows, idx_map, counts = scratch[:3]
+    check(bool(torch.equal(counts, (~bad).sum(dim=1).to(torch.int32))),
+          f"K2 {prec} pre-pass: counts differ from the number of kept targets")
+    for p in range(src.shape[0]):
+        kept = torch.nonzero(~bad[p]).flatten()
+        n = kept.numel()
+        check(bool(torch.equal(idx_map[p, :n], kept.to(torch.int32))),
+              f"K2 {prec} pre-pass: index map of pair {p} differs from torch.nonzero")
+        got = rows[p, :n] if prec == "bf16" else rows[p, :, :n]
+        check(bool(torch.equal(got, reference(tgt[p, kept]))),
+              f"K2 {prec} pre-pass: the kept rows of pair {p} differ from the plain version")
+    mk.run_phases(src, tgt, bad, mk.REDUCE, scratch, o_min, o_arg, prec)
+    md, am = mk.masked_argmin(src, tgt, bad, prec)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(o_min, md) and torch.equal(o_arg, am)),
+          f"K2 {prec}: the phases run apart differ from the one call")
+
+
+def _k2_phase_ms(torch, mk, src, tgt, bad, prec: str, iters: int) -> tuple:
+    """(pre-pass ms, main kernel + merge ms) of a mode, run apart."""
+    scratch = mk._scratch(src, tgt, prec)
+    o_min, o_arg = (torch.empty(src.shape[:2], dtype=dt, device=DEVICE)
+                    for dt in (torch.float32, torch.int32))
+
+    def run(phases):
+        return lambda: mk.run_phases(src, tgt, bad, phases, scratch, o_min, o_arg, prec)
+    run(mk.COMPACT)()
+    return cuda_ms(run(mk.COMPACT), iters), cuda_ms(run(mk.REDUCE), iters)
+
+
 @phase("k2")
 def phase_k2(torch, iters):
     from oryon_tpu_torch.ops.cuda import match_kernel as mk
@@ -879,30 +927,13 @@ def phase_k2(torch, iters):
     fp32 = _k2_gates(torch, mk, src, tgt, bad, "fp32", "K2 fp32")
     bf16 = _k2_gates(torch, mk, src, tgt, bad, "bf16", "K2 bf16")
     check(bf16["same"] >= 0.99, f"bf16 argmins agree {bf16['same']:.4f} < 0.99")
-    out = {"err": fp32["err"], "fp32_same": fp32["same"], "bf16_err": bf16["err"],
-           "bf16_same": bf16["same"]}
+    out = {"err": bf16["err"], "bf16_same": bf16["same"]}
+    f32 = {"err": fp32["err"], "same": fp32["same"]}
 
-    # the pre-pass on its own, against torch.nonzero
-    scratch = mk._bf16_scratch(src, tgt)
-    o_min, o_arg = torch.empty_like(bf16["min"]), torch.empty_like(bf16["arg"])
-
-    def run(phases, mask):
-        return lambda: mk.run_bf16_phases(src, tgt, mask, phases, scratch, o_min, o_arg)
-    run(mk.COMPACT, bad)()
-    torch.cuda.synchronize()
-    tgt16, idx_map, counts = scratch[:3]
-    check(bool(torch.equal(counts, (~bad).sum(dim=1).to(torch.int32))),
-          "K2 pre-pass: counts differ from the number of kept targets")
-    for p in range(K2_PAIRS):
-        kept = torch.nonzero(~bad[p]).flatten()
-        check(bool(torch.equal(idx_map[p, :kept.numel()], kept.to(torch.int32))),
-              f"K2 pre-pass: index map of pair {p} differs from torch.nonzero")
-        check(bool(torch.equal(tgt16[p, :kept.numel()], tgt[p, kept].bfloat16())),
-              f"K2 pre-pass: compacted rows of pair {p} differ")
-    run(mk.REDUCE, bad)()
-    torch.cuda.synchronize()
-    check(bool(torch.equal(o_min, bf16["min"]) and torch.equal(o_arg, bf16["arg"])),
-          "K2: the phases run apart differ from the one call")
+    # each pre-pass alone, against torch.nonzero and its plain version
+    _k2_prepass(torch, mk, src, tgt, bad, "bf16", lambda rows: rows.bfloat16())
+    _k2_prepass(torch, mk, src, tgt, bad, "fp32", lambda rows: torch.stack(
+        mk.split_tf32_plain(rows)))
 
     # edges: S and N off the tiles; pair 0 all excluded, pair 1 one target
     # kept, pair 2 none excluded, pair 3 its rows' best target three times
@@ -918,54 +949,89 @@ def phase_k2(torch, iters):
     tgt_e[3, N_e - 600:] = tgt_e[3, 700:1300]
     bad_e[3, 700:1300] = bad_e[3, 9000:9600] = bad_e[3, N_e - 600:] = False
     src_e[3, :600] = tgt_e[3, 700:1300]
-    edge = _k2_gates(torch, mk, src_e, tgt_e, bad_e, "bf16", "K2 bf16 edges")
-    check(bool(torch.isinf(edge["min"][0]).all() and (edge["arg"][0] == 0).all()),
-          "K2: a pair with every target excluded is not (+inf, 0)")
-    check(bool((edge["arg"][1] == 20011).all()), "K2: a pair with one kept target missed it")
-    check(bool(torch.equal(edge["arg"][3, :600],
-                           torch.arange(700, 1300, dtype=torch.int32, device=DEVICE))),
-          "K2: duplicated targets did not go to the lowest index")
-    _k2_gates(torch, mk, src_e, tgt_e, bad_e, "fp32", "K2 fp32 edges")
+    edges = {}
+    for prec in ("bf16", "fp32"):
+        edge = edges[prec] = _k2_gates(torch, mk, src_e, tgt_e, bad_e, prec, f"K2 {prec} edges")
+        check(bool(torch.isinf(edge["min"][0]).all() and (edge["arg"][0] == 0).all()),
+              f"K2 {prec}: a pair with every target excluded is not (+inf, 0)")
+        check(bool((edge["arg"][1] == 20011).all()),
+              f"K2 {prec}: a pair with one kept target missed it")
+        check(bool(torch.equal(edge["arg"][3, :600],
+                               torch.arange(700, 1300, dtype=torch.int32, device=DEVICE))),
+              f"K2 {prec}: duplicated targets did not go to the lowest index")
+    _k2_prepass(torch, mk, src_e, tgt_e, bad_e, "fp32", lambda rows: torch.stack(
+        mk.split_tf32_plain(rows)))
 
-    # the serving share: everything outside a blob of 5% excluded
+    # the serving share: everything outside a blob of 5% excluded; a rank of
+    # mesh.data=2 serving B=8 matches its 4 pairs
     blob = _blob_mask(torch, K2_PAIRS, 192, 0.05)
-    sparse = _k2_gates(torch, mk, src, tgt, blob, "bf16", "K2 bf16 blob mask")
-    # a rank of mesh.data=2 serving B=8 matches its 4 pairs
     half = K2_PAIRS // 2
-    rank = _k2_gates(torch, mk, src[:half], tgt[:half], blob[:half], "bf16",
-                     "K2 bf16 at a data-parallel rank's pairs")
+    sparse, rank = {}, {}
+    for prec in ("bf16", "fp32"):
+        sparse[prec] = _k2_gates(torch, mk, src, tgt, blob, prec, f"K2 {prec} blob mask")
+        rank[prec] = _k2_gates(torch, mk, src[:half], tgt[:half], blob[:half], prec,
+                               f"K2 {prec} at a data-parallel rank's pairs")
 
     # no single PyTorch call computes a masked cosine argmin
     out.update(timed(lambda: mk.masked_argmin(src, tgt, bad, "bf16"),
                      lambda: mk.masked_argmin_plain(src, tgt, bad, "bf16"), None, iters))
-    out["compact_ms"] = cuda_ms(run(mk.COMPACT, bad), iters)
-    out["reduce_ms"] = cuda_ms(run(mk.REDUCE, bad), iters)
-    out["fp32_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, bad, "fp32"), 3)
+    out["compact_ms"], out["reduce_ms"] = _k2_phase_ms(torch, mk, src, tgt, bad, "bf16", iters)
     out["blob_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, blob, "bf16"), iters)
-    out["blob_compact_ms"] = cuda_ms(run(mk.COMPACT, blob), iters)
-    out["blob_reduce_ms"] = cuda_ms(run(mk.REDUCE, blob), iters)
+    out["blob_compact_ms"], out["blob_reduce_ms"] = _k2_phase_ms(torch, mk, src, tgt, blob,
+                                                                 "bf16", iters)
     out["host_us"] = host_us(lambda: mk.masked_argmin(src, tgt, bad, "bf16"), 50)
-    # one product of 32 per source and non-excluded target, on bf16-rounded
-    # inputs (the mode timed), so counted at the bf16 rate
+    # the fp32 mode, its phases, and the CUDA-core kernel it replaces, in turns
+    f32.update(timed(lambda: mk.masked_argmin(src, tgt, bad, "fp32"),
+                     lambda: mk.masked_argmin_plain(src, tgt, bad, "fp32"), None, iters))
+    f32["compact_ms"], f32["reduce_ms"] = _k2_phase_ms(torch, mk, src, tgt, bad, "fp32", iters)
+    o_min, o_arg = torch.empty_like(fp32["min"]), torch.empty_like(fp32["arg"])
+
+    def cuda_core():
+        mk.run_cuda_core(src, tgt, bad, o_min, o_arg)
+    cuda_core()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(torch.isfinite(o_min), torch.isfinite(fp32["min"]))
+               and (o_min - fp32["min"]).abs().max().item() < 1e-5),
+          "K2: the CUDA-core kernel and the fp32 mode disagree")
+    f32["cuda_core_ms"] = (cuda_ms(cuda_core, 3) + cuda_ms(cuda_core, 3)) / 2
+    f32["tc_again_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, bad, "fp32"), iters)
+    f32["blob_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, blob, "fp32"), iters)
+    f32["host_us"] = host_us(lambda: mk.masked_argmin(src, tgt, bad, "fp32"), 50)
+    # one product of 32 per source and non-excluded target: at the bf16 rate
+    # for the bf16 mode; for the fp32 mode three TF32 products (the bound),
+    # and one f32 product on the CUDA cores beside it
     kept = int((~bad).sum().item())
-    out.update(bound(nbytes(src, tgt, bad, o_min, o_arg), {"bf16": 2 * K2_SRC * kept * 32}))
-    blob_bound = bound(nbytes(src, tgt, blob, o_min, o_arg),
-                       {"bf16": 2 * K2_SRC * int((~blob).sum().item()) * 32})
+    kept_blob = int((~blob).sum().item())
+    io = nbytes(src, tgt, bad, o_min, o_arg)
+    out.update(bound(io, {"bf16": 2 * K2_SRC * kept * 32}))
+    blob_bound = bound(io, {"bf16": 2 * K2_SRC * kept_blob * 32})
+    f32.update(bound(io, {"tf32": 3 * 2 * K2_SRC * kept * 32}))
+    f32_cores = bound(io, {"f32": 2 * K2_SRC * kept * 32})
+    f32_blob = bound(io, {"tf32": 3 * 2 * K2_SRC * kept_blob * 32})
+    out["fp32"] = f32
     out["line"] = (
-        f"{K2_PAIRS} x [{K2_SRC}, 32] x [{K2_TGT}, 32], 40% excluded: fp32 min err "
-        f"{out['err']:.2e}, argmins same {out['fp32_same']:.6f} (fp32) / "
-        f"{out['bf16_same']:.6f} (bf16), bf16 min err {out['bf16_err']:.2e}; bf16 mode: "
+        f"{K2_PAIRS} x [{K2_SRC}, 32] x [{K2_TGT}, 32], 40% excluded ({kept} kept): "
+        f"bf16 mode: min err {out['err']:.2e}, argmins same {out['bf16_same']:.6f}, "
         f"{times_txt(out)}; pre-pass {out['compact_ms']:.4f} ms (map, rows and counts equal "
-        f"torch.nonzero's), main kernel {out['reduce_ms']:.4f} ms; fp32 mode (the CUDA-core "
-        f"kernel) {out['fp32_ms']:.3f} ms; 95% excluded "
+        f"torch.nonzero's), main kernel {out['reduce_ms']:.4f} ms; 95% excluded "
         f"(blob): {out['blob_ms']:.4f} ms (pre-pass {out['blob_compact_ms']:.4f}, main "
         f"{out['blob_reduce_ms']:.4f}, bound {blob_bound['bound_ms']:.4f} "
-        f"{blob_bound['bound_by']}), argmins same {sparse['same']:.6f}; edges (S={S_e}, "
-        f"N={N_e}; all, all but one, none excluded; duplicates to the lowest index) min err "
-        f"{edge['err']:.2e}, argmins same {edge['same']:.6f}; a data-parallel rank's "
-        f"{half} pairs: min err {rank['err']:.2e}, argmins same {rank['same']:.6f}; "
-        f"two launches bitwise equal; "
-        f"host {out['host_us']:.1f} us per wrapper call")
+        f"{blob_bound['bound_by']}), argmins same {sparse['bf16']['same']:.6f}; "
+        f"host {out['host_us']:.1f} us per wrapper call | fp32 mode (split-TF32 wgmma): min "
+        f"err {f32['err']:.2e}, argmins same {f32['same']:.6f}, {times_txt(f32)}, again "
+        f"{f32['tc_again_ms']:.4f} ms; pre-pass {f32['compact_ms']:.4f} ms (hi/lo rows "
+        f"bitwise split_tf32_plain's, map and counts torch.nonzero's), main kernel "
+        f"{f32['reduce_ms']:.4f} ms; the CUDA-core kernel it replaces "
+        f"{f32['cuda_core_ms']:.3f} ms; bounds 3 x TF32 {f32['bound_ms']:.4f} ms, f32 CUDA "
+        f"cores {f32_cores['bound_ms']:.4f} ms; 95% excluded (blob) {f32['blob_ms']:.4f} ms "
+        f"(bound {f32_blob['bound_ms']:.4f}), argmins same {sparse['fp32']['same']:.6f}; host "
+        f"{f32['host_us']:.1f} us per wrapper call | edges (S={S_e}, N={N_e}; all, all but "
+        f"one, none excluded; duplicates to the lowest index) min err bf16 "
+        f"{edges['bf16']['err']:.2e} / fp32 {edges['fp32']['err']:.2e}, argmins same "
+        f"{edges['bf16']['same']:.6f} / {edges['fp32']['same']:.6f}; a data-parallel rank's "
+        f"{half} pairs (blob): min err {rank['bf16']['err']:.2e} / {rank['fp32']['err']:.2e}, "
+        f"argmins same {rank['bf16']['same']:.6f} / {rank['fp32']['same']:.6f}; two launches "
+        f"bitwise equal")
     return out
 
 
@@ -1519,6 +1585,53 @@ def phase_bench(torch, smi_line, layers):
                      f"{line['icp_off_variant']:.2f}, bf16 {line['bf16_parity_variant']:.2f}, "
                      f"RANSAC {line['ransac_variant']:.2f}; stages "
                      + ", ".join(f"{k} {v:.1f}" for k, v in line["stage_ms"].items()) + " ms")}
+
+
+@phase("serve_fp32")
+def phase_serve_fp32(torch, pred, reqs):
+    """A strict-parity run of the served model: its pipeline with
+    MatchParams(precision="fp32"), whose matching is K2's fp32 mode, on one
+    batch of 8, beside the serving default (bf16) on the same batch and the
+    same draws."""
+    from oryon_tpu_torch.config import TestConfig
+    from oryon_tpu_torch.ops.matching import MatchParams
+    from oryon_tpu_torch.pipeline import PipelineConfig, make_run_fn
+
+    tc = TestConfig()
+    batch, text = pred._build_batch(reqs[:8])
+    layers = pred.model.vision_cfg.layers
+    outs, secs, launched = {}, {}, {}
+    for prec, key in (("bf16", "k2"), ("fp32", "k2fp32")):
+        run = make_run_fn(pred.model, PipelineConfig(
+            solver="pointdsc", icp_refine=tc.icp_refine, icp_points=tc.icp_points,
+            icp_iters=tc.icp_iters, icp_trim=tc.icp_trim,
+            match=MatchParams(src_capacity=5120, max_corrs=500, dist_th=0.25, precision=prec)),
+            pred.pointdsc)
+
+        def one():
+            return run(batch, text, generator=torch.Generator(device=DEVICE).manual_seed(9))
+        outs[prec], got = _counted(torch, one)
+        launched[prec] = got
+        want = {k: 0 for k in got}
+        want.update({"k1": layers, key: 1})
+        check(got == want, f"precision {prec}: launches {got}, expected {want}")
+        t0 = time.perf_counter()
+        for _ in range(TIMED_BATCHES):
+            one()
+        torch.cuda.synchronize()
+        secs[prec] = (time.perf_counter() - t0) / TIMED_BATCHES
+    a, b = outs["bf16"], outs["fp32"]
+    check(bool(torch.isfinite(b.packed).all()), "fp32 matching: the poses are not finite")
+    check(bool(torch.equal(a.mask_a, b.mask_a) and torch.equal(a.mask_q, b.mask_q)),
+          "fp32 matching: the masks differ from the serving default's")
+    same = (a.corrs == b.corrs).all(dim=-1) & (a.corr_valid == b.corr_valid)
+    return {"line": (f"one batch of 8 with MatchParams(precision='fp32'): launches K1 {layers} "
+                     f"K2 fp32 1 (K2 bf16 0), masks equal to the default's, correspondence "
+                     f"rows equal {same.float().mean().item():.4f}, n_corrs "
+                     f"{b.n_corrs.int().tolist()} against {a.n_corrs.int().tolist()}; warm batch "
+                     f"{secs['fp32'] * 1e3:.1f} ms against {secs['bf16'] * 1e3:.1f} ms "
+                     f"(host clock)"),
+            "counts": {"k2fp32": launched["fp32"]["k2fp32"]}}
 
 
 @phase("serve_small")
@@ -3163,6 +3276,7 @@ def main(argv=None) -> int:
         "k2": phase_k2(torch, TIMED_LAUNCHES),
     }
     measured["k1f32"] = measured["k1"]["f32"]
+    measured["k2fp32"] = measured["k2"]["fp32"]
     if args.kernels:
         return 0
     if args.cards > 1:
@@ -3175,6 +3289,7 @@ def main(argv=None) -> int:
     phase_register(torch)
     counts, pred, reqs = phase_serve(torch, TIMED_BATCHES, args.profile)["state"]
     counts.update(phase_serve_optin(torch, pred, reqs, TIMED_BATCHES)["counts"])
+    counts.update(phase_serve_fp32(torch, pred, reqs)["counts"])
     counts["k1f32"] = phase_serve_small(torch)["counts"]["k1"]
     layers = pred.model.vision_cfg.layers
     tmp = tempfile.mkdtemp(prefix="oryon_smoke_")
@@ -3211,7 +3326,9 @@ def main(argv=None) -> int:
          "oryon_tpu/ops/pallas/mha_lanes.py:72"),
         ("k1f32", "fused_mha_lanes_qkv (f32)", "attn_f32.cuh",
          "oryon_tpu/ops/pallas/mha_lanes.py:45"),
-        ("k2", "masked_argmin", "match_kernel.cu", "oryon_tpu/ops/pallas/match_kernel.py:60"),
+        ("k2", "masked_argmin", "match_wgmma.cuh", "oryon_tpu/ops/matching.py:60"),
+        ("k2fp32", "masked_argmin (fp32)", "match_tf32.cuh",
+         "oryon_tpu/ops/pallas/match_kernel.py:60"),
         ("k3", "packed_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:90"),
         ("k4", "band_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:204"),
         ("k5", "flash_mha_padded", "flash.cu", "oryon_tpu/ops/flash.py:84"),

@@ -1,6 +1,7 @@
 // The Hopper pieces the wgmma kernels of this library share (attn_wgmma.cuh:
-// K1, K1-i8 and K5 at head dimension 64; match_wgmma.cuh: K2 in bf16 mode;
-// swin_wgmma.cuh: K3 and K4 at head dimension 32):
+// K1, K1-i8 and K5 at head dimension 64; match_wgmma.cuh and match_tf32.cuh:
+// K2 in its bf16 and fp32 modes; swin_wgmma.cuh: K3 and K4 at head dimension
+// 32):
 // `mbarrier`s, TMA tile loads through tensor maps, shared-memory matrix
 // descriptors and the wgmma fences, as inline PTX, and the host-side encoding
 // of a tensor map.
@@ -104,7 +105,7 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 // 8-row groups lie `8 * row bytes` apart (the stride byte offset); the leading
 // byte offset is not used (one swizzle atom along K).  A K-major operand (the
 // K values of a row are contiguous) advances its start address by 32 bytes
-// per wgmma k step (16 bf16 or 32 int8 values); tile bases are 1024-byte
+// per wgmma k step (16 bf16, 32 int8 or 8 tf32 values); tile bases are 1024-byte
 // aligned, so the step leaves the swizzle phase (address bits 7 and up) alone.
 // An MN-major B operand (a [keys, head dim] V tile read as it lies, with the
 // transposed-B bit of the instruction) takes the same descriptor: its rows are
@@ -163,7 +164,8 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A map over a tensor of `rank` (3 or 4) dimensions, dims[0] the contiguous
-// one, of elements of `elem_bytes` (2: bf16, 1: int8 as bytes); strides[i] is
+// one, of elements of `elem_bytes` (4: f32, 2: bf16, 1: int8 as bytes; the
+// bits are copied as they lie); strides[i] is
 // the byte stride of dimension i + 1.  It loads boxes of box[] elements with
 // zero fill out of bounds.  A box row (box[0] elements) is one swizzle span:
 // 128 bytes takes the 128-byte swizzle, 64 bytes the 64-byte one.
@@ -184,7 +186,10 @@ inline cudaError_t encode_map_nd(CUtensorMap* map, const void* base, int elem_by
     if (i + 1 < rank) g_strides[i] = strides[i];
   }
   const CUresult res = fn(
-      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      map,
+      elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       rank, const_cast<void*>(base), g_dims, g_strides, g_box, elem_strides,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,

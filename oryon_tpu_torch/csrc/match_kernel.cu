@@ -1,43 +1,48 @@
 // Masked cosine argmin for nearest-neighbour feature matching.
 //
-// Replaces: oryon_tpu/ops/pallas/match_kernel.py::masked_argmin_pallas (the
-// Pallas TPU kernel `_kernel`) and its XLA twin, the default path
-// oryon_tpu/ops/matching.py::_streaming_argmin.  For every source row it
-// returns the minimum and the argmin over the targets of
-// 0.5 * (1 - <src, tgt>), with excluded targets at +inf (the default XLA
-// path; the opt-in Pallas kernel adds +1e9 instead, which gives the same
-// argmin whenever at least one target is allowed).  Ties go to the lowest
-// target index, as in both JAX versions.
+// For every source row: the minimum and the argmin over the targets of
+// 0.5 * (1 - <src, tgt>), with excluded targets at +inf and ties to the
+// lowest target index.  Two modes, each the counterpart of one JAX function:
 //
-// What bounds it on an H100: per pair 5120 x 36864 x 32 multiply-adds
-// (about 97 GFLOP for a batch of 8 pairs) against 4.7 MB of targets, so it is
-// bound by arithmetic; materialising the 5120 x 36864 f32 distance matrix
-// would instead cost 755 MB of device memory traffic per pair.
+//  * precision "fp32" replaces the Pallas TPU kernel
+//    oryon_tpu/ops/pallas/match_kernel.py::masked_argmin_pallas, which takes
+//    its products at Precision.HIGHEST on the f32 inputs (and the XLA twin
+//    _streaming_argmin under MatchParams.precision = "fp32", the strict-parity
+//    runs).  The Pallas kernel adds +1e9 to an excluded target instead of
+//    +inf: the same argmin whenever one target of the pair is kept; with none
+//    kept this port returns (+inf, 0), as _streaming_argmin does.  It runs on
+//    the tensor cores as three TF32 products (match_tf32.cuh: a pre-pass that
+//    compacts and splits the kept targets, `wgmma` m64n128k8 tf32, the
+//    running best on the accumulator registers), entry
+//    oryon_masked_argmin_wgmma_tf32x3.  Each input keeps about 22 bits, so
+//    the sums are within about 1e-7 of f32 ones, against the mode's 1e-5
+//    gate; one TF32 product (11 bits) would not hold it.
+//  * precision "bf16" replaces oryon_tpu/ops/matching.py::_streaming_argmin in
+//    its bf16 mode (inputs rounded to bf16, f32 sums; the serving default of
+//    MatchParams.precision): match_wgmma.cuh, a compacting pre-pass, then
+//    `wgmma` m64n128k16, entry oryon_masked_argmin_wgmma_bf16.
 //
-// Two kernels serve it.  precision "bf16" (inputs rounded to bf16, f32 sums;
-// the serving default of MatchParams.precision) runs the tensor-core kernel
-// of match_wgmma.cuh: a compacting pre-pass, then `wgmma` products with the
-// running best on the accumulator registers.  precision "fp32" runs the
-// CUDA-core kernel below on the inputs as they are: no tensor-core type
-// keeps its gate (minima within 1e-5 of the plain version; TF32 has 10 bits
-// of mantissa).
+// What bounds it on an H100: per pair 5120 x (kept targets) x 32
+// multiply-adds against 4.7 MB of targets, so arithmetic; materialising the
+// 5120 x 36864 f32 distance matrix would instead cost 755 MB of device memory
+// traffic per pair.
 //
-// Design of the CUDA-core kernel: one launch covers the whole batch, grid =
-// (source tiles, pairs).  Each thread keeps two 32-wide source rows in registers and walks every
-// target of its pair in increasing index order; a block stages 256-target
-// chunks in shared memory, where all threads read the same target at once
-// (a broadcast, no bank conflicts).  Excluded targets are skipped, which is
-// the same as +inf under the strict `<` that keeps the first index on ties.
-// Each dot product is summed as four interleaved partial sums (more
-// independent FMAs in flight); the sum order therefore differs from a BLAS
-// matmul in the last bits, which only matters at exact near-ties.  32 FMAs
-// and about 6 more instructions a product.
+// The CUDA-core kernel below (the first body of the fp32 mode, entry
+// oryon_masked_argmin_f32) is on no route: it stays in the library only so
+// that chip_smoke.py can time it beside the fp32 mode's kernel in the same
+// run.  One launch
+// covers the batch, grid = (source tiles, pairs); each thread keeps two
+// 32-wide source rows in registers and walks every target of its pair in
+// index order through 256-target chunks in shared memory (a broadcast read),
+// skipping excluded ones (the same as +inf under the strict `<`); four
+// interleaved partial sums a dot product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "match_tf32.cuh"
 #include "match_wgmma.cuh"
 
 namespace {
@@ -129,6 +134,7 @@ masked_argmin_kernel(const float* __restrict__ src,
 
 }  // namespace
 
+// The CUDA-core kernel (timed beside the fp32 mode; no route calls it).
 // src [P, S, D] f32, tgt [P, N, D] f32, bad [P, N] bytes (nonzero =
 // excluded), out_min [P, S] f32, out_arg [P, S] i32, all contiguous; D must
 // be 32.  Returns a cudaError_t code (0 on success).
@@ -163,4 +169,20 @@ extern "C" int oryon_masked_argmin_wgmma_bf16(
   return int(oryon_match_wg::launch(src, tgt, bad, tgt16, idx_map, counts, part_best,
                                     part_pos, out_min, out_arg, P, S, N, splits, phases,
                                     static_cast<cudaStream_t>(stream)));
+}
+
+// The fp32 mode on the tensor cores (match_tf32.cuh): arguments as the bf16
+// entry's, with `rows` the [P, 2, N, 32] f32 scratch of the split pre-pass
+// (the TF32 hi and lo parts of each pair's kept targets) in place of tgt16.
+extern "C" int oryon_masked_argmin_wgmma_tf32x3(
+    const void* src, const void* tgt, const void* bad, void* rows, void* idx_map,
+    void* counts, void* part_best, void* part_pos, void* out_min, void* out_arg,
+    int P, int S, int N, int D, int splits, int phases, void* stream) {
+  if (P <= 0 || P > 65535 || S <= 0 || N <= 0 || D != oryon_match_wg::kD ||
+      splits <= 0 || splits > 65535 || (phases & ~3) != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(oryon_match_wg::launch_tf32x3(src, tgt, bad, rows, idx_map, counts, part_best,
+                                           part_pos, out_min, out_arg, P, S, N, splits,
+                                           phases, static_cast<cudaStream_t>(stream)));
 }

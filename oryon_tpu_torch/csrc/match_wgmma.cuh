@@ -1,6 +1,7 @@
 // Masked cosine argmin with bf16-rounded inputs (K2 in its serving mode,
-// precision "bf16"), designed for Hopper.  The f32 mode stays on the CUDA-core
-// kernel of match_kernel.cu: TF32 would not hold its 1e-5 gate.
+// precision "bf16"), designed for Hopper.  The f32 mode (match_tf32.cuh) is
+// built on the same pre-pass, reduction and merge, with each f32 product
+// taken as three TF32 products.
 //
 // What bounds the function on an H100: 2 * 32 FLOPs per (source, kept target)
 // against 128 bytes per target read once, so the tensor cores; and once the
@@ -88,12 +89,32 @@ __device__ __forceinline__ int zero_bytes(uint32_t w) {
   return 4 - __popc(nz);
 }
 
-// tgt [P, N, 32] f32, bad [P, N] bytes (nonzero = excluded) -> tgt16 [P, N, 32]
-// bf16 (the kept rows of each pair first, in order; the rest not written),
-// idx_map [P, N] i32 (original index of each kept row), counts [P] i32.
+// x rounded to TF32 (10 bits of mantissa; to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds) by integer operations on its bits, so that the low
+// 13 bits are zero and the tensor core's truncation of them never decides a
+// result; match_kernel.py's split_tf32_plain is the same arithmetic.
+__device__ __forceinline__ float round_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// x = hi + lo to about 2^-22 |x|: hi = tf32(x), lo = tf32(x - hi) (the
+// difference is exact in f32).
+__device__ __forceinline__ void split_tf32(float4 v, float4& hi, float4& lo) {
+  hi = make_float4(round_tf32(v.x), round_tf32(v.y), round_tf32(v.z), round_tf32(v.w));
+  lo = make_float4(round_tf32(v.x - hi.x), round_tf32(v.y - hi.y), round_tf32(v.z - hi.z),
+                   round_tf32(v.w - hi.w));
+}
+
+// tgt [P, N, 32] f32, bad [P, N] bytes (nonzero = excluded) -> the kept rows
+// of each pair first, in order (the rest not written): kSplit false, `rows`
+// is tgt16 [P, N, 32] bf16; kSplit true, it is [P, 2, N, 32] f32 with the
+// TF32 hi parts of pair p in plane 2p and the lo parts in plane 2p + 1 (the
+// f32 mode, match_tf32.cuh).  idx_map [P, N] i32 (original index of each kept
+// row), counts [P] i32.
+template <bool kSplit>
 __global__ void __launch_bounds__(kChunk)
 compact_targets_kernel(const float* __restrict__ tgt, const uint8_t* __restrict__ bad,
-                       __nv_bfloat16* __restrict__ tgt16, int* __restrict__ idx_map,
+                       void* __restrict__ rows_out, int* __restrict__ idx_map,
                        int* __restrict__ counts, int N) {
   __shared__ int warp_kept[kChunk / 32];
   __shared__ int warp_before[kChunk / 32];
@@ -138,18 +159,27 @@ compact_targets_kernel(const float* __restrict__ tgt, const uint8_t* __restrict_
   }
   __syncthreads();
 
-  // the kept rows, 8 threads a row: 16 bytes of f32 in, 8 bytes of bf16 out,
-  // consecutive threads on consecutive output bytes
+  // the kept rows, 8 threads a row: 16 bytes of f32 in, 8 bytes of bf16 (or
+  // 16 + 16 bytes of TF32 hi and lo) out, consecutive threads on consecutive
+  // output bytes
   const float4* rows = reinterpret_cast<const float4*>(tgt + (size_t(pair) * N + c0) * kD);
-  uint2* dst = reinterpret_cast<uint2*>(tgt16 + (size_t(pair) * N + before) * kD);
-  for (int i = t; i < total * 8; i += kChunk) {
-    const float4 v = rows[kept_local[i >> 3] * 8 + (i & 7)];
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 o;
-    o.x = *reinterpret_cast<const uint32_t*>(&lo);
-    o.y = *reinterpret_cast<const uint32_t*>(&hi);
-    dst[i] = o;
+  if constexpr (kSplit) {
+    float4* hi = static_cast<float4*>(rows_out) + (size_t(2 * pair) * N + before) * (kD / 4);
+    float4* lo = hi + size_t(N) * (kD / 4);
+    for (int i = t; i < total * 8; i += kChunk) {
+      split_tf32(rows[kept_local[i >> 3] * 8 + (i & 7)], hi[i], lo[i]);
+    }
+  } else {
+    uint2* dst = static_cast<uint2*>(rows_out) + (size_t(pair) * N + before) * (kD / 4);
+    for (int i = t; i < total * 8; i += kChunk) {
+      const float4 v = rows[kept_local[i >> 3] * 8 + (i & 7)];
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 o;
+      o.x = *reinterpret_cast<const uint32_t*>(&lo);
+      o.y = *reinterpret_cast<const uint32_t*>(&hi);
+      dst[i] = o;
+    }
   }
   if (blockIdx.x == gridDim.x - 1 && t == 0) counts[pair] = before + total;
 }
@@ -482,10 +512,9 @@ cudaError_t launch(const void* src, const void* tgt, const void* bad, void* tgt1
                    void* out_min, void* out_arg, int P, int S, int N, int splits,
                    int phases, cudaStream_t stream) {
   if (phases & 1) {
-    compact_targets_kernel<<<dim3((N + kChunk - 1) / kChunk, P), kChunk, 0, stream>>>(
-        static_cast<const float*>(tgt), static_cast<const uint8_t*>(bad),
-        static_cast<__nv_bfloat16*>(tgt16), static_cast<int*>(idx_map),
-        static_cast<int*>(counts), N);
+    compact_targets_kernel<false><<<dim3((N + kChunk - 1) / kChunk, P), kChunk, 0, stream>>>(
+        static_cast<const float*>(tgt), static_cast<const uint8_t*>(bad), tgt16,
+        static_cast<int*>(idx_map), static_cast<int*>(counts), N);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -54,6 +54,8 @@ SIGNATURES = {
     "oryon_masked_argmin_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "oryon_masked_argmin_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _P],
+    "oryon_masked_argmin_wgmma_tf32x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -234,12 +234,46 @@ def compact_model(tgt, bad):
         idx_map, count
 
 
-def tiled_argmin_model(src, tgt, bad, tile: int = 128, splits: int = 1):
-    """Pure-PyTorch model of the arithmetic of K2's bf16 kernel for one pair
-    (src [S, D], tgt [N, D] f32 numpy, bad [N] bool): compacted targets in
-    tiles of ``tile``; f32 sums of bf16-rounded inputs; each of the four
-    lanes that share a row owns the columns ``j * 8 + 2 * lane + {0, 1}`` of
-    a tile, tracks the maximum of the sum over them with a strict ``>`` from
+def tf32_split_model(x):
+    """The fp32 kernel's split of f32 values (``csrc/match_wgmma.cuh``:
+    round_tf32), in numpy on the bit patterns: hi = x rounded to 10 bits of
+    mantissa (half a unit added to the magnitude, the low 13 bits cleared:
+    to nearest, ties away from zero), lo = the same of x - hi.  Returns
+    (hi, lo) f32 arrays."""
+    def rnd(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    x = np.asarray(x, np.float32)
+    hi = rnd(x)
+    return hi, rnd(x - hi)
+
+
+def tf32x3_sums_model(src, tgt):
+    """[S, N] sums of the fp32 kernel's products for src [S, 32] and tgt
+    [N, 32] (torch f32): both split into TF32 hi and lo parts, then, in the
+    order of the kernel's 12 ``wgmma`` m64n128k8 steps, the k8 slices of
+    hi_s lo_t, of lo_s hi_t and of hi_s hi_t added to one f32 sum (each
+    product of two TF32 values is exact in f32)."""
+    import torch
+
+    s_hi, s_lo = (torch.from_numpy(a) for a in tf32_split_model(src.numpy()))
+    t_hi, t_lo = (torch.from_numpy(a) for a in tf32_split_model(tgt.numpy()))
+    acc = torch.zeros((src.shape[0], tgt.shape[0]), dtype=torch.float32)
+    for a, b in ((s_hi, t_lo), (s_lo, t_hi), (s_hi, t_hi)):
+        for k in range(0, a.shape[1], 8):
+            acc = acc + a[:, k:k + 8] @ b[:, k:k + 8].T
+    return acc
+
+
+def tiled_argmin_model(src, tgt, bad, tile: int = 128, splits: int = 1,
+                       precision: str = "bf16"):
+    """Pure-PyTorch model of the arithmetic of K2's tensor-core kernels for
+    one pair (src [S, D], tgt [N, D] f32 numpy, bad [N] bool): compacted
+    targets in tiles of ``tile``; the sums: f32 sums of bf16-rounded inputs
+    (``precision="bf16"``, ``csrc/match_wgmma.cuh``) or the three TF32
+    products of ``tf32x3_sums_model`` (``"fp32"``, ``csrc/match_tf32.cuh``);
+    each of the four lanes that share a row owns the columns ``j * 8 + 2 *
+    lane + {0, 1}`` of a tile, tracks the maximum of the sum over them with a strict ``>`` from
     tile to tile and, inside a winning tile, the first of its columns that
     holds the maximum; the last tile bounds its columns; the lanes merge at
     the end (larger sum, then lower position); the pair's tiles are cut into
@@ -250,8 +284,15 @@ def tiled_argmin_model(src, tgt, bad, tile: int = 128, splits: int = 1):
     import torch
 
     t16, idx_map, count = compact_model(tgt, bad)
-    s16 = torch.from_numpy(np.asarray(src, np.float32)).bfloat16().float()
-    S = s16.shape[0]
+    src32 = torch.from_numpy(np.asarray(src, np.float32))
+    kept = torch.from_numpy(np.asarray(tgt, np.float32))[idx_map.astype(np.int64)]
+    if precision == "bf16":
+        def tile_sums(t0, live):
+            return src32.bfloat16().float() @ t16[t0:t0 + live].float().T
+    else:
+        def tile_sums(t0, live):
+            return tf32x3_sums_model(src32, kept[t0:t0 + live])
+    S = src32.shape[0]
     lane_cols = torch.tensor([[j * 8 + 2 * lane + e for j in range(tile // 8) for e in (0, 1)]
                               for lane in range(4)])          # [4, tile / 4], increasing
     n_tiles = -(-count // tile)
@@ -264,7 +305,7 @@ def tiled_argmin_model(src, tgt, bad, tile: int = 128, splits: int = 1):
             t0 = t * tile
             sums = torch.full((S, tile), float("-inf"))
             live = min(tile, count - t0)
-            sums[:, :live] = s16 @ t16[t0:t0 + live].float().T
+            sums[:, :live] = tile_sums(t0, live)
             per_lane = sums[:, lane_cols]                            # [S, 4, tile / 4]
             tmax, first = per_lane.max(dim=-1)                       # first index on ties
             wins = tmax > best

@@ -161,14 +161,54 @@ def test_argmin_wgmma_kernel_matches_plain(cuda, P, S, N, kind):
     if kind == "edges":
         assert (am[1] == N // 2).all()
         assert torch.equal(am[3, :40].cpu(), torch.arange(60, 100, dtype=torch.int32))
-    scratch = mk._bf16_scratch(src, tgt)
-    mk.run_bf16_phases(src, tgt, bad, mk.COMPACT, scratch, md2, am2)
+    scratch = mk._scratch(src, tgt)
+    mk.run_phases(src, tgt, bad, mk.COMPACT, scratch, md2, am2)
     torch.cuda.synchronize()
     r16, rmap, rcount = mk.compact_targets_plain(tgt, bad)
     assert torch.equal(scratch[2], rcount)
     for p in range(P):
         n = int(rcount[p])
         assert torch.equal(scratch[0][p, :n], r16[p, :n]) and torch.equal(scratch[1][p, :n], rmap[p, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,S,N,kind", ARGMIN_BF16_CASES)
+def test_argmin_tf32x3_kernel_matches_plain(cuda, P, S, N, kind):
+    """K2's fp32 mode (the split-TF32 tensor-core kernel) vs the plain
+    version: minima within 1e-5, argmins identical except at near-ties (the
+    two plain distances within 1e-6); all excluded gives (+inf, 0), one kept
+    gives it, duplicated targets give the lowest index; the pre-pass's hi /
+    lo rows equal ``split_tf32_plain`` of the kept rows bitwise, its map and
+    counts ``torch.nonzero``'s; two launches bitwise equal."""
+    from oryon_tpu_torch.ops.cuda import match_kernel as mk
+
+    src, tgt, bad = _argmin_case(np.random.RandomState(7), cuda, P, S, N, kind)
+    md, am = mk.masked_argmin(src, tgt, bad, "fp32")
+    md2, am2 = mk.masked_argmin(src, tgt, bad, "fp32")
+    pm, pa = mk.masked_argmin_plain(src, tgt, bad, "fp32")
+    torch.cuda.synchronize()
+    assert torch.equal(md, md2) and torch.equal(am, am2)
+    finite = torch.isfinite(pm)
+    assert torch.equal(torch.isfinite(md), finite)
+    assert torch.equal(md[~finite], pm[~finite]) and (am[~finite] == 0).all()
+    assert (md[finite] - pm[finite]).abs().max().item() < 1e-5 if finite.any() else True
+    for p, s in torch.nonzero(am != pa).tolist():
+        d = 0.5 * (1.0 - tgt[p] @ src[p, s])
+        assert not bad[p, am[p, s]]
+        assert abs((d[am[p, s]] - d[pa[p, s]]).item()) <= 1e-6
+    if kind == "edges":
+        assert (am[1] == N // 2).all()
+        assert torch.equal(am[3, :40].cpu(), torch.arange(60, 100, dtype=torch.int32))
+    scratch = mk._scratch(src, tgt, "fp32")
+    mk.run_phases(src, tgt, bad, mk.COMPACT, scratch, md2, am2, "fp32")
+    torch.cuda.synchronize()
+    for p in range(P):
+        kept = torch.nonzero(~bad[p]).flatten()
+        n = kept.numel()
+        assert int(scratch[2][p]) == n
+        assert torch.equal(scratch[1][p, :n], kept.to(torch.int32))
+        hi, lo = mk.split_tf32_plain(tgt[p, kept])
+        assert torch.equal(scratch[0][p, 0, :n], hi) and torch.equal(scratch[0][p, 1, :n], lo)
 
 
 def _bf16(rs, *shape, device):

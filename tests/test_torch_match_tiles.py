@@ -207,23 +207,25 @@ def test_k2_wrapper_splits_the_targets_by_shape_and_card():
 
 
 @pytest.mark.parametrize("precision,entry", [("bf16", "oryon_masked_argmin_wgmma_bf16"),
-                                             ("fp32", "oryon_masked_argmin_f32")])
+                                             ("fp32", "oryon_masked_argmin_wgmma_tf32x3")])
 def test_k2_wrapper_chooses_the_kernel_by_mode(precision, entry):
-    """bf16 goes to the tensor-core kernel (one call runs the pre-pass and
-    the main kernel), fp32 stays on the CUDA-core kernel; one launch is
-    counted either way."""
+    """bf16 goes to the bf16 tensor-core kernel, fp32 to the split-TF32
+    tensor-core kernel (one call runs the pre-pass and the main kernel
+    either way); one launch is counted on the mode's own count."""
     from oryon_tpu_torch.ops.cuda import _lib, match_kernel
 
     stub = StubLib()
     src, tgt = torch.zeros(2, 8, D), torch.zeros(2, 12, D)
-    before = match_kernel.launches
+    before = (match_kernel.launches, match_kernel.launches_fp32)
     out_min, out_arg = match_kernel._launch(stub, src, tgt, torch.zeros(2, 12, dtype=torch.bool),
                                             precision, 0)
     assert out_min.shape == out_arg.shape == (2, 8)
     assert out_min.dtype == torch.float32 and out_arg.dtype == torch.int32
     assert stub.calls == [(entry, len(_lib.SIGNATURES[entry]))]
     assert match_kernel.kernel_entry(precision) == entry
-    assert match_kernel.launches == before + 1
+    bf16_more, fp32_more = (precision == "bf16"), (precision == "fp32")
+    assert (match_kernel.launches, match_kernel.launches_fp32) == (before[0] + bf16_more,
+                                                                 before[1] + fp32_more)
 
 
 def test_k2_no_kernel_for_other_precisions():

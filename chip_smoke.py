@@ -116,12 +116,17 @@ Phases, each printing one line with its result and its time:
  18. overfit   10 AdamW steps at full width on one synthetic batch of 8 with
                the same draws each step: the loss falls
  19. train_towers  2 steps at full width, B=32, with the vision and Swin
-               towers trained: K1 24 + 24 (recomputed) a step, gradients in
-               both towers and none in the text tower, peak memory; the
-               step's fusion/decoder gradient against the einsum tower's
-               (cosine > 0.999, loss within 1e-2); attn_impl=flash raises in
-               backward; K1's backward (autograd through the plain version)
-               at [64, 577, 3072] timed against SDPA's backward
+               towers trained: K1 24 + 24 (recomputed) and K1's backward
+               kernel 24 a step, gradients in both towers and none in the
+               text tower, peak memory; the step's fusion/decoder gradient
+               against the einsum tower's (cosine > 0.999, loss within 1e-2);
+               attn_impl=flash raises in backward; K1's backward kernel
+               against its plain version (autograd through reference_mha)
+               at [64, 577, 3072] (d qkv and d kmask, two launches bitwise
+               equal; timed beside the plain version and SDPA's backward,
+               with its bound and peak memory), at [16, 640, 3072] with keys
+               >= 577 masked and qk_int8 off and on, and in f32 at the small
+               tower's shape
  20. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
                train step over make_mesh(-1, 1) (gradient all-reduce, global
                loss normaliser, global draws) equals the plain step bitwise
@@ -2734,6 +2739,132 @@ def _fd_grad(model):
                       if n.split(".")[0] in ("fusion", "decoder")])
 
 
+K1_BWD_MASKED = (16, K1_PADDED, 3 * 1024)   # the padded tower's qkv, keys >= 577 masked
+K1_BWD_TOL, K1_BWD_COS = 2e-2, 0.9999   # bf16: of the largest |plain| value; cosine
+
+
+def _bwd_gate(torch, got, ref, what: str, f32: bool = False) -> float:
+    """K1's backward against its plain version: bf16 max abs error within
+    K1_BWD_TOL of the largest |plain| value and cosine >= K1_BWD_COS (both
+    round S, P, dP and dS * scale to bf16, in other orders of summation);
+    f32 within K1_F32_TOL of it (at least 1).  Returns the max abs error."""
+    torch.cuda.synchronize()
+    g, r = got.float().flatten(), ref.float().flatten()
+    check(bool(torch.isfinite(g).all()), f"{what}: kernel output not finite")
+    err, top = (g - r).abs().max().item(), r.abs().max().item()
+    if f32:
+        check(err <= K1_F32_TOL * max(1.0, top), f"{what}: max abs err {err} (largest {top})")
+        return err
+    cos = torch.nn.functional.cosine_similarity(g, r, dim=0).item() if top > 0 else 1.0
+    check(err <= K1_BWD_TOL * top and cos >= K1_BWD_COS,
+          f"{what}: max abs err {err} (largest {top}), cosine {cos:.6f}")
+    return err
+
+
+def _peak_gib(torch, fn) -> float:
+    """Device memory fn() allocates beyond what was allocated before, at its
+    peak, in GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def _k1_bwd_train(torch, mha_lanes, iters):
+    """K1's backward at the training shape (no key masked; kmask has no
+    gradient in the tower): the kernel through autograd against the plain
+    backward, two launches bitwise equal, d kmask as well; timed beside the
+    plain version and SDPA's backward, with its bound and peak memory."""
+    B, L, C3 = K1_TRAIN_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
+    kmask = torch.zeros(L, device=DEVICE)
+    dout = torch.randn((B, L, C3 // 3), generator=g, device=DEVICE).to(torch.bfloat16)
+    scale = (C3 // 3 // K1_HEADS) ** -0.5
+    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
+    res = {"fwd_err": compare(torch, out, mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
+                              "K1's autograd.Function forward at the training shape")}
+
+    def kernel():
+        return torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
+
+    def plain(want_mask=False):
+        return mha_lanes.reference_mha_backward(qkv, kmask, dout, K1_HEADS, scale, want_mask)
+    before = mha_lanes.launches_bwd
+    got = kernel()
+    check(mha_lanes.launches_bwd == before + 1, "K1's backward kernel did not launch")
+    ref, ref_m = plain(True)
+    res["err"] = _bwd_gate(torch, got, ref, "K1 backward at the training shape")
+    same_twice(torch, kernel, "K1 backward")
+    dq, dm = mha_lanes._backward(qkv.detach(), kmask, dout, K1_HEADS, scale, True)
+    check(bool(torch.equal(dq, got)), "K1 backward: d qkv moved when d kmask was asked for")
+    res["mask_err"] = _bwd_gate(torch, dm, ref_m, "K1 backward's d kmask at the training shape")
+    del ref, ref_m, dq, dm
+    lib = sdpa_packed(torch, qkv, None, K1_HEADS)
+    res.update(timed(kernel, plain,
+                     lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters))
+    res["peak_gib"], res["plain_peak_gib"] = _peak_gib(torch, kernel), _peak_gib(torch, plain)
+    hd = C3 // 3 // K1_HEADS
+    # five L x L x hd products: S, dP, dV, dQ, dK
+    res.update(bound(nbytes(qkv, kmask, dout, got), {"bf16": 10 * B * K1_HEADS * L * L * hd}))
+    return res
+
+
+def _k1_bwd_masked(torch, mha_lanes):
+    """K1's backward through autograd at the padded tower's shape, keys >= 577
+    masked, d qkv and d kmask, with qk_int8 off and on (straight-through: the
+    same gradient, bitwise).  Returns the max abs error."""
+    B, L, C3 = K1_BWD_MASKED
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
+    kmask = torch.where(torch.arange(L, device=DEVICE) < K1_SHAPE[1], 0.0, -1e9).requires_grad_()
+    dout = torch.randn((B, L, C3 // 3), generator=g, device=DEVICE).to(torch.bfloat16)
+    scale = (C3 // 3 // K1_HEADS) ** -0.5
+    ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
+    ref_q, ref_m = torch.autograd.grad(ref, (qkv, kmask), dout)
+    grads, err = [], 0.0
+    for i8 in (False, True):
+        before = mha_lanes.launches_bwd
+        out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8=i8)
+        grads.append(torch.autograd.grad(out, (qkv, kmask), dout))
+        check(mha_lanes.launches_bwd == before + 1, f"qk_int8={i8}: no backward launch")
+        err = max(err, _bwd_gate(torch, grads[-1][0], ref_q, f"K1 backward, qk_int8={i8}"),
+                  _bwd_gate(torch, grads[-1][1], ref_m, f"K1 backward's d kmask, qk_int8={i8}"))
+    check(all(bool(torch.equal(a, b)) for a, b in zip(*grads)),
+          "K1 backward: qk_int8 changed the gradient")
+    return err
+
+
+def _k1_bwd_f32(torch, mha_lanes, iters):
+    """K1's backward in f32 (CUDA cores) at the small tower's shape, d qkv and
+    d kmask against the plain version within K1_F32_TOL; timed beside it and
+    SDPA's backward in f32, with its bound."""
+    B, L, C3 = K1_F32_CASES[0][1]
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).requires_grad_()
+    kmask = torch.zeros(L, device=DEVICE)
+    dout = torch.randn((B, L, C3 // 3), generator=g, device=DEVICE)
+    scale = (C3 // 3 // K1_F32_HEADS) ** -0.5
+    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
+
+    def kernel():
+        return torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
+    got = kernel()
+    ref, ref_m = mha_lanes.reference_mha_backward(qkv, kmask, dout, K1_F32_HEADS, scale, True)
+    dm = mha_lanes._backward(qkv.detach(), kmask, dout, K1_F32_HEADS, scale, True)[1]
+    res = {"err": max(_bwd_gate(torch, got, ref, "K1 f32 backward", f32=True),
+                      _bwd_gate(torch, dm, ref_m, "K1 f32 backward's d kmask", f32=True))}
+    lib = sdpa_packed(torch, qkv, None, K1_F32_HEADS)
+    res.update(timed(kernel, lambda: mha_lanes.reference_mha_backward(
+        qkv, kmask, dout, K1_F32_HEADS, scale, False),
+        lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters))
+    res.update(bound(nbytes(qkv, kmask, dout, got),
+                     {"f32": 10 * B * L * L * (C3 // 3)}))
+    return res
+
+
 @phase("train_towers")
 def phase_train_towers(torch, iters, layers):
     from oryon_tpu_torch.ops.cuda import mha_lanes
@@ -2752,8 +2883,9 @@ def phase_train_towers(torch, iters, layers):
         check(np.isfinite(float(m["loss/total"])), "train_towers: loss not finite")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     for c in step_counts:
-        check(c["k1"] == 2 * layers and sum(c.values()) == 2 * layers,
-              f"train_towers step launches {c}, expected K1 {layers} + {layers} (recomputed)")
+        check(c["k1"] == 2 * layers and c["k1bwd"] == layers and sum(c.values()) == 3 * layers,
+              f"train_towers step launches {c}, expected K1 {layers} + {layers} (recomputed) "
+              f"and K1's backward {layers}")
     grads = {t: [p.grad for n, p in model.named_parameters() if n.startswith(t + ".")]
              for t in ("vlm_visual", "guidance", "vlm_text")}
     check(all(g is None for g in grads["vlm_text"]), "a gradient reached the text tower")
@@ -2788,46 +2920,28 @@ def phase_train_towers(torch, iters, layers):
     del loss, model, state, batch, g_k, g_p
     torch.cuda.empty_cache()
 
-    # K1's backward (autograd through the plain version) at the training shape
-    B, L, C3 = K1_TRAIN_SHAPE
-    g = torch.Generator(device=DEVICE).manual_seed(4)
-    qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
-    kmask = torch.zeros(L, device=DEVICE)
-    dout = torch.randn((B, L, C3 // 3), generator=g, device=DEVICE).to(torch.bfloat16)
-    scale = (C3 // 3 // K1_HEADS) ** -0.5
-    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
-    ref = mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale)
-    lib = sdpa_packed(torch, qkv, None, K1_HEADS)
-    fwd_err = compare(torch, out, ref, "K1's autograd.Function forward at the training shape")
-    dq = torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
-    dq_ref = torch.autograd.grad(ref, qkv, dout, retain_graph=True)[0]
-    # by design the same function (the backward recomputes reference_mha):
-    # this holds the wiring, not a kernel
-    torch.cuda.synchronize()
-    same_bwd = bool(torch.equal(dq, dq_ref))
-    check(same_bwd, "K1's backward differs from autograd through reference_mha")
-    torch.cuda.reset_peak_memory_stats()
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, dout, retain_graph=True), iters)
-    bwd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters)
-    hd = C3 // 3 // K1_HEADS
-    # five L x L x hd products: S = Q K^T again, dV, dP, dQ, dK
-    b = bound(nbytes(qkv, kmask, dout, dq), {"bf16": 10 * B * K1_HEADS * L * L * hd})
-    res = {"k1_bwd": {"ms": bwd_ms, "library_ms": lib_ms, **b},
-           "peak_gib": peak_gib, "step_ms": step_ms}
+    res = _k1_bwd_train(torch, mha_lanes, iters)
+    masked_err = _k1_bwd_masked(torch, mha_lanes)
+    res["f32"] = _k1_bwd_f32(torch, mha_lanes, iters)
+    res.update(peak_step_gib=peak_gib, step_ms=step_ms, launches=step_counts[0]["k1bwd"])
     res["line"] = (f"full width, B={TRAIN_BATCH}, Swin einsum, K1 fused: 2 steps "
                    f"({', '.join(f'{v:.0f}' for v in step_ms)} ms host) with launches "
-                   f"K1 {step_counts[0]['k1']} a step ({layers} + {layers} recomputed), "
-                   f"gradients in vlm_visual and guidance, none in vlm_text; peak "
-                   f"{peak_gib:.2f} GiB allocated; fusion/decoder gradient vs the einsum "
-                   f"tower: cosine {cos:.6f} (bound {GRAD_COS_BOUND}), loss {loss_k:.5f} vs "
-                   f"{loss_p:.5f} (rel {rel:.2e}, tol {GRAD_LOSS_TOL}); attn_impl=flash "
-                   f"raises; K1 at qkv [{B}, {L}, {C3}] bf16 under autograd: forward (the "
-                   f"kernel) max abs err vs reference_mha {fwd_err:.3e} (tol {KERNEL_TOL}), "
-                   f"backward (autograd through the plain version, by design equal to "
-                   f"reference_mha's: {same_bwd}) {bwd_ms:.3f} ms, SDPA backward "
-                   f"{lib_ms:.3f} ms, bound "
-                   f"{b['bound_ms']:.4f} ms ({b['bound_by']}), peak {bwd_peak:.2f} GiB")
+                   f"K1 {step_counts[0]['k1']} a step ({layers} + {layers} recomputed) and "
+                   f"K1's backward {step_counts[0]['k1bwd']}, gradients in vlm_visual and "
+                   f"guidance, none in vlm_text; peak {peak_gib:.2f} GiB allocated; "
+                   f"fusion/decoder gradient vs the einsum tower: cosine {cos:.6f} (bound "
+                   f"{GRAD_COS_BOUND}), loss {loss_k:.5f} vs {loss_p:.5f} (rel {rel:.2e}, tol "
+                   f"{GRAD_LOSS_TOL}); attn_impl=flash raises; K1 at qkv {list(K1_TRAIN_SHAPE)} "
+                   f"bf16 under autograd: forward max abs err {res['fwd_err']:.3e} (tol "
+                   f"{KERNEL_TOL}), backward kernel vs plain max abs err {res['err']:.3e}, d "
+                   f"kmask {res['mask_err']:.3e} (tol {K1_BWD_TOL} of the largest value, "
+                   f"cosine >= {K1_BWD_COS}), two launches bitwise equal, {times_txt(res)}, "
+                   f"kernel / library {res['ms'] / res['library_ms']:.2f}, peak "
+                   f"{res['peak_gib']:.3f} GiB (plain {res['plain_peak_gib']:.2f}); "
+                   f"{list(K1_BWD_MASKED)}, keys >= {K1_SHAPE[1]} masked, qk_int8 off and on "
+                   f"(the same gradient bitwise): max abs err {masked_err:.3e}; f32 "
+                   f"{list(K1_F32_CASES[0][1])}: {res['f32']['err']:.2e} (tol {K1_F32_TOL}), "
+                   f"{times_txt(res['f32'])}")
     return res
 
 
@@ -3310,7 +3424,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_overfit(torch)
         torch.cuda.empty_cache()
-        phase_train_towers(torch, TIMED_LAUNCHES, layers)
+        towers = phase_train_towers(torch, TIMED_LAUNCHES, layers)
+        measured["k1bwd"], counts["k1bwd"] = towers, towers["launches"]
         torch.cuda.empty_cache()
         phase_mesh1(torch, tmp, dev["smi"])
         torch.cuda.empty_cache()
@@ -3326,6 +3441,8 @@ def main(argv=None) -> int:
          "oryon_tpu/ops/pallas/mha_lanes.py:72"),
         ("k1f32", "fused_mha_lanes_qkv (f32)", "attn_f32.cuh",
          "oryon_tpu/ops/pallas/mha_lanes.py:45"),
+        ("k1bwd", "MhaLanesFunction.backward", "attn_bwd.cuh",
+         "oryon_tpu/ops/pallas/mha_lanes.py:180"),
         ("k2", "masked_argmin", "match_wgmma.cuh", "oryon_tpu/ops/matching.py:60"),
         ("k2fp32", "masked_argmin (fp32)", "match_tf32.cuh",
          "oryon_tpu/ops/pallas/match_kernel.py:60"),

@@ -53,7 +53,12 @@
 // f32 qkv (the small and tiny towers compute in f32): the CUDA-core kernel
 // of attn_f32.cuh at head dimensions 16, 32, 64 and 128, with the TPU
 // kernel's f32 arithmetic (see there).
+//
+// The backward (d qkv and d kmask, for the towers under train_towers; the
+// same for K1 and K1-i8, whose gradient is straight-through): attn_bwd.cuh,
+// tensor cores at bf16 and CUDA cores at f32, head dimensions 16-128.
 
+#include "attn_bwd.cuh"
 #include "attn_f32.cuh"
 #include "attn_stream.cuh"
 #include "attn_wgmma.cuh"
@@ -259,4 +264,54 @@ extern "C" int oryon_fused_mha_lanes_i8qk_wgmma_bf16(
                                                L, C, heads, s));
   }
   return int(cudaSuccess);
+}
+
+namespace {
+
+oryon_attn_bwd::BwdParams bwd_params(const void* qkv, const void* kmask, const void* dout,
+                                     void* dqkv, void* stats, void* colsum, int L, int C,
+                                     int heads, float scale) {
+  oryon_attn_bwd::BwdParams p{};
+  p.qkv = qkv;
+  p.kmask = static_cast<const float*>(kmask);
+  p.dout = dout;
+  p.dqkv = dqkv;
+  p.stats = static_cast<float*>(stats);
+  p.colsum = static_cast<float*>(colsum);
+  p.L = L;
+  p.C = C;
+  p.heads = heads;
+  p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+// K1's backward: qkv [B, L, 3C] and dout [B, L, C] bf16, kmask [L] f32 in;
+// dqkv [B, L, 3C] bf16 out; dkmask [L] f32 out, or null when kmask needs no
+// gradient.  stats [3, B * heads * L] and colsum [B * heads, L] f32 are
+// scratch.  All contiguous; C / heads in {16, 32, 64, 128}.
+extern "C" int oryon_mha_lanes_bwd_bf16(const void* qkv, const void* kmask,
+                                        const void* dout, void* dqkv, void* stats,
+                                        void* colsum, void* dkmask, int B, int L,
+                                        int C, int heads, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || heads <= 0 || C % heads != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(oryon_attn_bwd::launch<false>(
+      bwd_params(qkv, kmask, dout, dqkv, stats, colsum, L, C, heads, scale), B,
+      static_cast<float*>(dkmask), static_cast<cudaStream_t>(stream)));
+}
+
+// The same in f32 (qkv, dout and dqkv f32; the CUDA-core kernels).
+extern "C" int oryon_mha_lanes_bwd_f32(const void* qkv, const void* kmask,
+                                       const void* dout, void* dqkv, void* stats,
+                                       void* colsum, void* dkmask, int B, int L,
+                                       int C, int heads, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || heads <= 0 || C % heads != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(oryon_attn_bwd::launch<true>(
+      bwd_params(qkv, kmask, dout, dqkv, stats, colsum, L, C, heads, scale), B,
+      static_cast<float*>(dkmask), static_cast<cudaStream_t>(stream)));
 }

@@ -11,6 +11,7 @@ from typing import Dict
 
 # kernel -> (module of this package, name of its count)
 _COUNTERS = {"k1": ("mha_lanes", "launches"), "k1i8": ("mha_lanes", "launches_i8"),
+             "k1bwd": ("mha_lanes", "launches_bwd"),
              "k2": ("match_kernel", "launches"), "k2fp32": ("match_kernel", "launches_fp32"),
              "k3": ("swin_attn", "launches_packed"),
              "k4": ("swin_attn", "launches_band"), "k5": ("flash", "launches")}
@@ -26,6 +27,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """{"k1", "k1i8", "k2", "k2fp32", "k3", "k4", "k5"} -> launches since the
-    reset ("k2" counts K2's bf16 mode, "k2fp32" its fp32 mode)."""
+    """{"k1", "k1i8", "k1bwd", "k2", "k2fp32", "k3", "k4", "k5"} -> launches
+    since the reset ("k1bwd" counts K1's backward, either mode; "k2" counts
+    K2's bf16 mode, "k2fp32" its fp32 mode)."""
     return {key: getattr(_module(module), attr) for key, (module, attr) in _COUNTERS.items()}

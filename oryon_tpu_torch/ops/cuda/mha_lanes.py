@@ -30,10 +30,16 @@ serves which shape (``kernel_entry``):
 
 Gradients: on a ``qkv`` that requires one (the towers under
 ``train_towers``), the call goes through ``MhaLanesFunction``: forward is the
-kernel (the plain version on the CPU), backward recomputes the attention
-through ``reference_mha`` under autograd and returns d qkv and d kmask.
-That is the JAX package's ``_bwd`` (``jax.vjp`` of its ``_reference_mha``),
-straight-through for ``qk_int8``: the gradient ignores the quantisation.
+kernel above, backward is K1's backward kernel (``backward_entry``):
+``csrc/attn_bwd.cuh`` on the tensor cores for bf16 (entry
+``oryon_mha_lanes_bwd_bf16``) and on the CUDA cores for f32
+(``oryon_mha_lanes_bwd_f32``), head dimensions 16, 32, 64 and 128, counted
+on ``launches_bwd``.  It returns d qkv and, when kmask needs one, d kmask:
+the JAX package's ``_bwd`` (``jax.vjp`` of its ``_reference_mha``),
+straight-through for ``qk_int8`` (the gradient ignores the quantisation, so
+both modes launch the same kernel).  On the CPU both directions run the
+plain versions: ``reference_mha`` and ``reference_mha_backward`` (autograd
+through ``reference_mha``).
 
 ``qk_int8=True`` forms the logits from int8 codes: per (image, head),
 ``q * scale`` and ``k`` are quantised by the absmax of their whole [L, hd]
@@ -50,6 +56,7 @@ from oryon_tpu_torch.ops.cuda import _lib
 
 launches = 0      # K1 launches so far; callers may reset it to 0
 launches_i8 = 0   # K1-i8 launches (pre-pass and main kernel count as one)
+launches_bwd = 0  # K1 backward launches (its kernels count as one)
 PREPASS, ATTEND = 1, 2   # phases of the head-dim-64 K1-i8 entry; both = 3
 
 
@@ -202,9 +209,74 @@ def _forward(qkv: torch.Tensor, kmask: torch.Tensor, heads: int, scale: float,
                    torch.cuda.current_stream(qkv.device).cuda_stream)
 
 
+def backward_entry(head_dim: int, dtype=torch.bfloat16) -> str:
+    """The C entry point of K1's backward for this head dimension and dtype
+    (either ``qk_int8``: the gradient is straight-through)."""
+    if head_dim not in (16, 32, 64, 128):
+        raise ValueError(f"head dim {head_dim} not in (16, 32, 64, 128)")
+    if dtype == torch.float32:
+        return "oryon_mha_lanes_bwd_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K1's backward takes a bf16 or f32 qkv, got {dtype}")
+    return "oryon_mha_lanes_bwd_bf16"
+
+
+def reference_mha_backward(qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor,
+                           heads: int, scale: float, want_mask: bool):
+    """Plain version of K1's backward: (d qkv, d kmask or None) by autograd
+    through ``reference_mha`` with the input dtype's logits, as the JAX
+    ``_bwd`` takes ``jax.vjp`` of its ``_reference_mha``."""
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        m = kmask.detach().requires_grad_(want_mask)
+        out = reference_mha(x, m, heads, scale)
+        grads = torch.autograd.grad(out, (x, m) if want_mask else (x,), dout)
+    return grads[0], (grads[1] if want_mask else None)
+
+
+def _launch_backward(lib, qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor,
+                     heads: int, scale: float, want_mask: bool, stream: int):
+    """Allocate d qkv, d kmask and the scratch (row statistics, per-(image,
+    head) sums of dS), call the backward entry on ``lib`` and count the
+    launch."""
+    global launches_bwd
+    B, L, C3 = qkv.shape
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    fn = getattr(lib, backward_entry(C3 // 3 // heads, qkv.dtype))
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B * heads * L), **f32)
+    colsum = torch.empty((B * heads, L), **f32)
+    dkmask = torch.empty((L,), **f32) if want_mask else None
+    err = fn(qkv.data_ptr(), kmask.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+             stats.data_ptr(), colsum.data_ptr(), 0 if dkmask is None else dkmask.data_ptr(),
+             B, L, C3 // 3, heads, float(scale), stream)
+    _lib.check(err, "K1 backward")
+    launches_bwd += 1
+    return dqkv, dkmask
+
+
+def _backward(qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor, heads: int,
+              scale: float, want_mask: bool):
+    """The backward kernel on a CUDA device, the plain version on the CPU."""
+    if qkv.device.type == "cpu":
+        return reference_mha_backward(qkv, kmask, dout, heads, scale, want_mask)
+    if qkv.device.type != "cuda" or kmask.device != qkv.device or dout.device != qkv.device:
+        raise ValueError(f"qkv on {qkv.device}, kmask on {kmask.device}, dout on "
+                         f"{dout.device}: need all on one CUDA device")
+    if kmask.dtype != torch.float32 or dout.dtype != qkv.dtype:
+        raise TypeError(f"K1's backward takes an f32 kmask and a dout in qkv's dtype "
+                        f"{qkv.dtype}, got {kmask.dtype} and {dout.dtype}")
+    if not (qkv.is_contiguous() and kmask.is_contiguous()):
+        raise ValueError("qkv and kmask must be contiguous")
+    # raises on a dtype or head dim without a kernel
+    backward_entry(qkv.shape[-1] // 3 // heads, qkv.dtype)
+    return _launch_backward(_lib.library(), qkv, kmask, dout.contiguous(), heads, scale,
+                            want_mask, torch.cuda.current_stream(qkv.device).cuda_stream)
+
+
 class MhaLanesFunction(torch.autograd.Function):
-    """K1 under autograd: forward ``_forward``, backward through the plain
-    ``reference_mha`` with bf16 (or f32) logits whatever ``qk_int8``."""
+    """K1 under autograd: forward ``_forward``, backward ``_backward`` (the
+    same with either ``qk_int8``)."""
 
     @staticmethod
     def forward(ctx, qkv, kmask, heads: int, scale: float, qk_int8: bool):
@@ -215,13 +287,9 @@ class MhaLanesFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         qkv, kmask = ctx.saved_tensors
-        want_mask = ctx.needs_input_grad[1]
-        with torch.enable_grad():
-            x = qkv.detach().requires_grad_(True)
-            m = kmask.detach().requires_grad_(want_mask)
-            out = reference_mha(x, m, ctx.heads, ctx.scale)
-            grads = torch.autograd.grad(out, (x, m) if want_mask else (x,), grad_out)
-        return grads[0], (grads[1] if want_mask else None), None, None, None
+        dqkv, dkmask = _backward(qkv, kmask, grad_out, ctx.heads, ctx.scale,
+                                 ctx.needs_input_grad[1])
+        return dqkv, dkmask, None, None, None
 
 
 def fused_mha_lanes_qkv(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,

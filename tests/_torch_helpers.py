@@ -150,6 +150,52 @@ def tiled_attention_model(q, k, v, scale: float, kmask=None, seg=None,
     return (o / l_run).to(q.dtype)
 
 
+def k1_backward_model(qkv, kmask, dout, heads: int, scale: float, tile: int = 64):
+    """Pure-PyTorch model of the arithmetic of K1's backward kernels
+    (``oryon_tpu_torch/csrc/attn_bwd.cuh``) on the packed [B, L, 3C] torch
+    tensors: (d qkv in qkv's dtype, d kmask f32).
+
+    The logits are f32 sums of the input-dtype products, rounded to the input
+    dtype, times ``scale``, plus the mask; dP likewise rounded.  A first sweep
+    over key tiles of ``tile`` keeps the running row max m, the sum l of
+    exp(S - m) and the sum of exp(S - m) * dP, rescaled by exp(m_old - m_new)
+    as the max moves, so D = that sum / l is rowsum(P * dP).  Then P =
+    exp(S - m) / l, dS = P (dP - D), and the three products take bf16(P) and
+    bf16(dS * scale) (the input dtype) with f32 sums, rounded once; d kmask is
+    the sum of dS over images, heads and query rows."""
+    import torch
+
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // heads
+    dt = qkv.dtype
+
+    def rnd(x):
+        return x.to(dt).float()
+    q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2).float() for t in qkv.split(C, -1))
+    do = dout.reshape(B, L, heads, hd).transpose(1, 2).float()
+    mask = kmask.float()
+    m = torch.full((B, heads, L, 1), float("-inf"))
+    l = torch.zeros(B, heads, L, 1)
+    dd = torch.zeros(B, heads, L, 1)
+    for k0 in range(0, L, tile):
+        ks = slice(k0, min(k0 + tile, L))
+        s = rnd(q @ k[:, :, ks].mT) * scale + mask[ks]
+        dp = rnd(do @ v[:, :, ks].mT)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        x = torch.exp(s - m_new)
+        l = l * corr + x.sum(-1, keepdim=True)
+        dd = dd * corr + (x * dp).sum(-1, keepdim=True)
+        m = m_new
+    p = torch.exp(rnd(q @ k.mT) * scale + mask - m) / l
+    ds = p * (rnd(do @ v.mT) - dd / l)
+    dsc = rnd(ds * scale)
+    grads = (dsc @ k, dsc.mT @ q, rnd(p).mT @ do)
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B, L, C) for t in grads], -1)
+    return dqkv.to(dt), ds.sum((0, 1, 2))
+
+
 def window_tile_model(q, k, v, bias, heads: int, scale: float, bias_bf16: bool):
     """Pure-PyTorch model of the arithmetic of the wgmma window-attention
     kernel (``oryon_tpu_torch/csrc/swin_wgmma.cuh``) on q, k, v [Bw, N, C]

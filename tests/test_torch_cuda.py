@@ -544,29 +544,124 @@ def test_run_test_torch_main_at_small_size_on_the_card(cuda, tmp_path, capsys):
     assert len(saved["VSD"]) == 4 and all(np.isfinite(saved["AR"]))
 
 
+# K1's backward: B, L, heads, head dim, first padded key, keys 0-63 masked
+# too, dtype.  bf16 runs the tensor-core kernels, f32 the CUDA-core ones.
+K1_BWD_CASES = [(2, 130, 4, 64, 120, False, torch.bfloat16),
+                (2, 577, 8, 64, 577, False, torch.bfloat16),   # the tower's L
+                (2, 640, 4, 64, 577, True, torch.bfloat16),    # a masked leading tile
+                (2, 100, 4, 16, 90, False, torch.bfloat16),
+                (2, 77, 4, 32, 70, False, torch.bfloat16),
+                (1, 70, 2, 128, 64, False, torch.bfloat16),
+                (2, 1, 2, 64, 1, False, torch.bfloat16),
+                (2, 65, 4, 16, 65, False, torch.float32),      # the small tower
+                (2, 17, 4, 16, 17, False, torch.float32),      # the tiny tower
+                (2, 130, 4, 32, 100, False, torch.float32),
+                (1, 577, 4, 64, 560, False, torch.float32),
+                (1, 70, 2, 128, 64, False, torch.float32)]
+
+
+def _k1_bwd_inputs(cuda, B, L, H, hd, real, lead, dtype):
+    rs = np.random.RandomState(4)
+    qkv = torch.from_numpy(rs.randn(B, L, 3 * H * hd).astype(np.float32)).to(cuda, dtype)
+    m = torch.where(torch.arange(L) < real, 0.0, -1e9)
+    if lead:
+        m[:64] = -1e9
+    dout = torch.from_numpy(rs.randn(B, L, H * hd).astype(np.float32)).to(cuda, dtype)
+    return qkv, m.to(cuda), dout
+
+
+def _assert_bwd_close(got, ref, dtype, what):
+    """K1's backward tolerance: bf16 max abs error within 2e-2 of the largest
+    |plain| value and cosine >= 0.9999 (both round S, P, dP and dS * scale to
+    bf16, but sum in other orders, so a value near a rounding tie lands one
+    ulp away); f32 within 1e-5 of the largest |plain| value (at least 1)."""
+    g, r = got.float().flatten(), ref.float().flatten()
+    assert torch.isfinite(g).all(), what
+    err, top = (g - r).abs().max().item(), r.abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5 * max(1.0, top), (what, err, top)
+    else:
+        cos = torch.nn.functional.cosine_similarity(g, r, dim=0).item() if top > 0 else 1.0
+        assert err <= 2e-2 * top and cos >= 0.9999, (what, err, top, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,hd,real,lead,dtype", K1_BWD_CASES)
+def test_k1_backward_kernel_matches_plain(cuda, B, L, H, hd, real, lead, dtype):
+    """K1's backward kernel against its plain version (autograd through
+    ``reference_mha``): d q, d k, d v and d kmask apart, every head dim and
+    both dtypes, ragged L and masked keys; one launch counted a call, two
+    calls bitwise equal."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    qkv, m, dout = _k1_bwd_inputs(cuda, B, L, H, hd, real, lead, dtype)
+    scale = hd ** -0.5
+    before = mha_lanes.launches_bwd
+    dqkv, dm = mha_lanes._backward(qkv, m, dout, H, scale, True)
+    assert mha_lanes.launches_bwd == before + 1 and dqkv.dtype == dtype
+    ref, ref_m = mha_lanes.reference_mha_backward(qkv, m, dout, H, scale, True)
+    for i, name in enumerate(("d q", "d k", "d v")):
+        part = slice(i * H * hd, (i + 1) * H * hd)
+        _assert_bwd_close(dqkv[..., part], ref[..., part], dtype, name)
+    _assert_bwd_close(dm, ref_m, dtype, "d kmask")
+    again, again_m = mha_lanes._backward(qkv, m, dout, H, scale, True)
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, again) and torch.equal(dm, again_m)
+
+
 @pytest.mark.cuda
 def test_k1_gradient_on_the_card(cuda):
-    """K1 under autograd on the card: the forward launches the kernel once,
-    the backward is autograd through the plain ``reference_mha`` (no launch),
-    so d qkv equals autograd of the plain version and the output is within
-    the kernel's 2e-2."""
+    """K1 under autograd on the card: the forward launches K1 once and the
+    backward K1's backward kernel once (no autograd through the plain
+    version); d qkv and d kmask within the kernel's tolerance of autograd
+    through the plain ``reference_mha`` (bf16: 2e-2 of the largest value,
+    cosine >= 0.9999), the output within the kernel's 2e-2; with
+    ``qk_int8`` the gradient is bitwise the same (straight-through)."""
     from oryon_tpu_torch.ops.cuda import mha_lanes
 
     rs = np.random.RandomState(4)
     B, L, H, hd = 2, 130, 4, 64
     qkv = torch.from_numpy(rs.randn(B, L, 3 * H * hd).astype(np.float32))
     qkv = qkv.to(cuda, torch.bfloat16).requires_grad_()
-    m = torch.where(torch.arange(L) < 120, 0.0, -1e9).to(cuda)
+    m = torch.where(torch.arange(L) < 120, 0.0, -1e9).to(cuda).requires_grad_()
     dout = torch.from_numpy(rs.randn(B, L, H * hd).astype(np.float32)).to(cuda, torch.bfloat16)
-    before = mha_lanes.launches
+    before = (mha_lanes.launches, mha_lanes.launches_bwd)
     out = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, hd ** -0.5)
-    (dq,) = torch.autograd.grad(out, qkv, dout)
-    assert mha_lanes.launches == before + 1
+    dq, dm = torch.autograd.grad(out, (qkv, m), dout)
+    assert (mha_lanes.launches, mha_lanes.launches_bwd) == (before[0] + 1, before[1] + 1)
     ref = mha_lanes.reference_mha(qkv, m, H, hd ** -0.5)
-    (dq_ref,) = torch.autograd.grad(ref, qkv, dout)
+    dq_ref, dm_ref = torch.autograd.grad(ref, (qkv, m), dout)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() < 2e-2
-    assert torch.equal(dq, dq_ref)
+    _assert_bwd_close(dq, dq_ref, torch.bfloat16, "d qkv")
+    _assert_bwd_close(dm, dm_ref, torch.bfloat16, "d kmask")
+    out8 = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, hd ** -0.5, qk_int8=True)
+    dq8, dm8 = torch.autograd.grad(out8, (qkv, m), dout)
+    torch.cuda.synchronize()
+    assert torch.equal(dq8, dq) and torch.equal(dm8, dm)
+
+
+@pytest.mark.cuda
+def test_k1_backward_refuses_what_it_does_not_take(cuda):
+    """On the card K1's backward launches its kernel or raises: an fp16 qkv,
+    a dout of another dtype, a head dim without a kernel or a CPU kmask."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    qkv = torch.zeros(1, 8, 3 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    m = torch.zeros(8, device=cuda)
+    dout = torch.zeros(1, 8, 2 * 64, device=cuda, dtype=torch.bfloat16)
+    before = mha_lanes.launches_bwd
+    with pytest.raises(TypeError):
+        mha_lanes._backward(qkv.half(), m, dout.half(), 2, 1.0, False)
+    with pytest.raises(TypeError):
+        mha_lanes._backward(qkv, m, dout.float(), 2, 1.0, False)
+    with pytest.raises(ValueError, match="head dim"):
+        mha_lanes._backward(torch.zeros(1, 8, 3 * 2 * 48, device=cuda, dtype=torch.bfloat16),
+                            m, torch.zeros(1, 8, 2 * 48, device=cuda, dtype=torch.bfloat16),
+                            2, 1.0, False)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        mha_lanes._backward(qkv, m.cpu(), dout, 2, 1.0, False)
+    assert mha_lanes.launches_bwd == before
 
 
 @pytest.mark.cuda
@@ -574,9 +669,9 @@ def test_k1_gradient_on_the_card(cuda):
 def test_tiny_train_step_on_the_card(cuda, train_towers):
     """One train step of the tiny model (f32 towers: K1's f32 mode) on the
     card against the same step on the CPU: K1 launches 2 a step (+ 2
-    recomputed under ``train_towers``), the losses within 1e-4 relative, the
-    fusion weights' SGD update (linear in the gradient) within 1e-4 of its
-    size; TF32 off, as the f32 parity needs."""
+    recomputed and K1's backward 2 under ``train_towers``), the losses within
+    1e-4 relative, the fusion weights' SGD update (linear in the gradient)
+    within 1e-4 of its size; TF32 off, as the f32 parity needs."""
     from oryon_tpu_torch.data.synthetic import synthetic_pair_batch
     from oryon_tpu_torch.infer import full_precision_matmuls
     from oryon_tpu_torch.models.layers import random_init_
@@ -596,7 +691,9 @@ def test_tiny_train_step_on_the_card(cuda, train_towers):
         _, m = make_train_step()(state, synthetic_pair_batch(**kw, device=dev))
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert launch_counts()["k1"] == (4 if train_towers else 2)
+            counts = launch_counts()
+            assert counts["k1"] == (4 if train_towers else 2)
+            assert counts["k1bwd"] == (2 if train_towers else 0)
         out[str(dev)] = (float(m["loss/total"]),
                          model.fusion.conv1.weight.detach().cpu().clone())
     (l_cpu, w_cpu), (l_gpu, w_gpu) = out["cpu"], out[str(cuda)]

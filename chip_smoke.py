@@ -121,12 +121,14 @@ Phases, each printing one line with its result and its time:
                text tower, peak memory; the step's fusion/decoder gradient
                against the einsum tower's (cosine > 0.999, loss within 1e-2);
                attn_impl=flash raises in backward; K1's backward kernel
-               against its plain version (autograd through reference_mha)
-               at [64, 577, 3072] (d qkv and d kmask, two launches bitwise
-               equal; timed beside the plain version and SDPA's backward,
-               with its bound and peak memory), at [16, 640, 3072] with keys
-               >= 577 masked and qk_int8 off and on, and in f32 at the small
-               tower's shape
+               (wgmma + TMA at head dim 64) against its plain version
+               (autograd through reference_mha) at [64, 577, 3072] (d qkv
+               and d kmask, two launches bitwise equal; timed beside the
+               plain version and SDPA's backward, with its bound and peak
+               memory; in turns with the mma.sync body, held against the
+               plain version too; its query-tile and key-tile kernels timed
+               alone), at [16, 640, 3072] with keys >= 577 masked and
+               qk_int8 off and on, and in f32 at the small tower's shape
  20. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
                train step over make_mesh(-1, 1) (gradient all-reduce, global
                loss normaliser, global draws) equals the plain step bitwise
@@ -185,6 +187,7 @@ ROT_TOL, TRANS_TOL = 1e-3, 1e-4   # registration: rad, m
 ADD_TOL = 1e-4                    # ADD and ADD-S of a recovered pose, m
 TIMED_LAUNCHES = 20               # per kernel timing run (K2's CUDA-core kernel: 3)
 TIMED_BATCHES = 3                 # warm B=8 batches timed for pairs/s
+STEP_TURN_ITERS = 2               # train_towers steps a turn, K1 bwd wgmma vs mma.sync body
 DEVICE = "cuda"                   # the CPU rehearsal sets "cpu"
 
 
@@ -229,14 +232,19 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns: dict, iters: int) -> dict:
+    """Mean device ms of each function, each the mean of two runs: all in
+    order, then all in reverse order."""
+    first = {k: cuda_ms(f, iters) for k, f in fns.items()}
+    second = {k: cuda_ms(fns[k], iters) for k in reversed(list(fns))}
+    return {k: (first[k] + second[k]) / 2 for k in fns}
+
+
 def alternate(kernel, plain, iters: int):
     """(kernel ms, plain ms), each the mean of two runs in the order plain,
     kernel, kernel, plain."""
-    p1 = cuda_ms(plain, iters)
-    k1 = cuda_ms(kernel, iters)
-    k2 = cuda_ms(kernel, iters)
-    p2 = cuda_ms(plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    t = in_turns({"plain": plain, "kernel": kernel}, iters)
+    return t["kernel"], t["plain"]
 
 
 def bound(n_bytes: float, ops: dict) -> dict:
@@ -2776,7 +2784,10 @@ def _k1_bwd_train(torch, mha_lanes, iters):
     """K1's backward at the training shape (no key masked; kmask has no
     gradient in the tower): the kernel through autograd against the plain
     backward, two launches bitwise equal, d kmask as well; timed beside the
-    plain version and SDPA's backward, with its bound and peak memory."""
+    plain version and SDPA's backward, with its bound and peak memory.  The
+    mma.sync body (which no route takes at head dim 64) is held against the
+    plain version and timed in turns with the kernel; the query-tile and
+    key-tile kernels are timed alone (``split_ms``)."""
     B, L, C3 = K1_TRAIN_SHAPE
     g = torch.Generator(device=DEVICE).manual_seed(4)
     qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
@@ -2801,10 +2812,30 @@ def _k1_bwd_train(torch, mha_lanes, iters):
     dq, dm = mha_lanes._backward(qkv.detach(), kmask, dout, K1_HEADS, scale, True)
     check(bool(torch.equal(dq, got)), "K1 backward: d qkv moved when d kmask was asked for")
     res["mask_err"] = _bwd_gate(torch, dm, ref_m, "K1 backward's d kmask at the training shape")
+
+    def body(entry, phases=mha_lanes.BWD_DQ | mha_lanes.BWD_DKV, stats=None):
+        return lambda: mha_lanes.run_backward_entry(entry, qkv.detach(), kmask, dout, K1_HEADS,
+                                                    scale, False, phases, stats)[0]
+    bodies = {"wgmma": body(mha_lanes.BWD_WGMMA), "mma_sync": body("oryon_mha_lanes_bwd_bf16")}
+    check(bool(torch.equal(bodies["wgmma"](), got)), "K1 backward: the entry moved d qkv")
+    res["mma_sync_err"] = _bwd_gate(torch, bodies["mma_sync"](), ref,
+                                    "K1 backward's mma.sync body")
     del ref, ref_m, dq, dm
     lib = sdpa_packed(torch, qkv, None, K1_HEADS)
     res.update(timed(kernel, plain,
                      lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters))
+    res["body_ms"] = in_turns(bodies, iters)
+    # the key-tile kernel alone reads the row statistics the query-tile kernel
+    # wrote into one scratch, which both then keep using
+    stats = mha_lanes.backward_stats(qkv, K1_HEADS)
+    split = {"dq": body(mha_lanes.BWD_WGMMA, mha_lanes.BWD_DQ, stats),
+             "dkv": body(mha_lanes.BWD_WGMMA, mha_lanes.BWD_DKV, stats)}
+    C = C3 // 3
+    check(bool(torch.equal(split["dq"]()[..., :C], got[..., :C])),
+          "K1 backward: the query-tile kernel alone moved d q")
+    check(bool(torch.equal(split["dkv"]()[..., C:], got[..., C:])),
+          "K1 backward: the key-tile kernel alone moved d k, d v")
+    res["split_ms"] = in_turns(split, iters)
     res["peak_gib"], res["plain_peak_gib"] = _peak_gib(torch, kernel), _peak_gib(torch, plain)
     hd = C3 // 3 // K1_HEADS
     # five L x L x hd products: S, dP, dV, dQ, dK
@@ -2889,6 +2920,28 @@ def phase_train_towers(torch, iters, layers):
     grads = {t: [p.grad for n, p in model.named_parameters() if n.startswith(t + ".")]
              for t in ("vlm_visual", "guidance", "vlm_text")}
     check(all(g is None for g in grads["vlm_text"]), "a gradient reached the text tower")
+
+    # the step in turns with the mma.sync body in the wgmma body's place
+    route, swapped = mha_lanes.backward_entry, [0]
+
+    def mma_sync_route(head_dim, dtype=torch.bfloat16):
+        entry = route(head_dim, dtype)
+        if entry != mha_lanes.BWD_WGMMA:
+            return entry
+        swapped[0] += 1
+        return "oryon_mha_lanes_bwd_bf16"
+
+    def run_step():
+        step(state, batch, torch.Generator(device=DEVICE).manual_seed(1))
+
+    def mma_sync_step():
+        mha_lanes.backward_entry = mma_sync_route
+        try:
+            run_step()
+        finally:
+            mha_lanes.backward_entry = route
+    step_body_ms = in_turns({"wgmma": run_step, "mma_sync": mma_sync_step}, STEP_TURN_ITERS)
+    check(swapped[0] > 0, "train_towers: the step did not take the mma.sync body")
     for t in ("vlm_visual", "guidance"):
         check(any(g is not None and bool(g.abs().max() > 0) for g in grads[t]),
               f"no gradient reached {t}")
@@ -2923,9 +2976,12 @@ def phase_train_towers(torch, iters, layers):
     res = _k1_bwd_train(torch, mha_lanes, iters)
     masked_err = _k1_bwd_masked(torch, mha_lanes)
     res["f32"] = _k1_bwd_f32(torch, mha_lanes, iters)
-    res.update(peak_step_gib=peak_gib, step_ms=step_ms, launches=step_counts[0]["k1bwd"])
+    res.update(peak_step_gib=peak_gib, step_ms=step_ms, launches=step_counts[0]["k1bwd"],
+               step_body_ms=step_body_ms)
     res["line"] = (f"full width, B={TRAIN_BATCH}, Swin einsum, K1 fused: 2 steps "
-                   f"({', '.join(f'{v:.0f}' for v in step_ms)} ms host) with launches "
+                   f"({', '.join(f'{v:.0f}' for v in step_ms)} ms host; in turns, device "
+                   f"ms a step: " + ", ".join(f"{k} {v:.2f}" for k, v in step_body_ms.items())
+                   + f") with launches "
                    f"K1 {step_counts[0]['k1']} a step ({layers} + {layers} recomputed) and "
                    f"K1's backward {step_counts[0]['k1bwd']}, gradients in vlm_visual and "
                    f"guidance, none in vlm_text; peak {peak_gib:.2f} GiB allocated; "
@@ -2936,7 +2992,11 @@ def phase_train_towers(torch, iters, layers):
                    f"{KERNEL_TOL}), backward kernel vs plain max abs err {res['err']:.3e}, d "
                    f"kmask {res['mask_err']:.3e} (tol {K1_BWD_TOL} of the largest value, "
                    f"cosine >= {K1_BWD_COS}), two launches bitwise equal, {times_txt(res)}, "
-                   f"kernel / library {res['ms'] / res['library_ms']:.2f}, peak "
+                   f"kernel / library {res['ms'] / res['library_ms']:.2f}; in turns: "
+                   + ", ".join(f"{k} {v:.4f} ms" for k, v in res["body_ms"].items())
+                   + f" (mma.sync max abs err {res['mma_sync_err']:.3e}); alone: "
+                   + ", ".join(f"{k} {v:.4f} ms" for k, v in res["split_ms"].items())
+                   + f"; peak "
                    f"{res['peak_gib']:.3f} GiB (plain {res['plain_peak_gib']:.2f}); "
                    f"{list(K1_BWD_MASKED)}, keys >= {K1_SHAPE[1]} masked, qk_int8 off and on "
                    f"(the same gradient bitwise): max abs err {masked_err:.3e}; f32 "
@@ -3040,8 +3100,8 @@ def phase_mesh1(torch, tmp, smi_line):
     from oryon_tpu_torch.parallel import mesh as pm
     pm.init_distributed("cuda", "nccl", f"file://{tmp}/mesh1.store", 0, 1, local_rank=0)
     try:
-        check(pm.serving_mesh(-1, 1, 8) is None, "serving_mesh on one rank gave a mesh")
-        mesh = pm.make_mesh(-1, 1)
+        check(pm.serving_mesh(-1, 1, 8, device="cuda") is None, "serving_mesh on one rank gave a mesh")
+        mesh = pm.make_mesh(-1, 1, device="cuda")
         check(mesh.shape == {"data": 1, "model": 1}, f"mesh {mesh.shape}")
         model = _full_train_model(torch, 17)
         init = _trainable(model)
@@ -3104,7 +3164,7 @@ def _dp2_rank(torch, rank, pm):
     """mesh.data=2: 3 training steps at B=32 (16 a rank) and a served batch
     of 8 (4 a rank); rank 0 then runs both on one device, the other rank
     waiting at a barrier."""
-    mesh = pm.make_mesh(2, 1)
+    mesh = pm.make_mesh(2, 1, device="cuda")
     model = _full_train_model(torch, 21)
     pm.place_params(model, mesh)
     init = _trainable(model)
@@ -3162,7 +3222,7 @@ def _tp2_rank(torch, rank, pm):
     import copy
 
     from oryon_tpu_torch.parallel.tp import shard_params_tp
-    mesh = pm.make_mesh(1, 2)
+    mesh = pm.make_mesh(1, 2, device="cuda")
     model, pointdsc = _serving_model(torch)
     ref_model = copy.deepcopy(model) if rank == 0 else None
     shard_params_tp(model, mesh)
@@ -3441,7 +3501,7 @@ def main(argv=None) -> int:
          "oryon_tpu/ops/pallas/mha_lanes.py:72"),
         ("k1f32", "fused_mha_lanes_qkv (f32)", "attn_f32.cuh",
          "oryon_tpu/ops/pallas/mha_lanes.py:45"),
-        ("k1bwd", "MhaLanesFunction.backward", "attn_bwd.cuh",
+        ("k1bwd", "MhaLanesFunction.backward", "attn_bwd_wgmma.cuh",
          "oryon_tpu/ops/pallas/mha_lanes.py:180"),
         ("k2", "masked_argmin", "match_wgmma.cuh", "oryon_tpu/ops/matching.py:60"),
         ("k2fp32", "masked_argmin (fp32)", "match_tf32.cuh",

@@ -656,8 +656,9 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const BwdParams p) {
   }
 }
 
-// dkmask[j] = sum over the B * heads rows of colsum, in order
-__global__ void __launch_bounds__(256)
+// dkmask[j] = sum over the B * heads rows of colsum, in order.  Internal
+// linkage: attn_bwd_wgmma.cuh's entry launches it from another source file.
+static __global__ void __launch_bounds__(256)
 colsum_kernel(const float* __restrict__ colsum, float* __restrict__ dkmask, int rows, int L) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= L) return;

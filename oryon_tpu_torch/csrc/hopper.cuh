@@ -88,6 +88,16 @@ __device__ __forceinline__ void tma_load_tile4(uint32_t dst, const CUtensorMap* 
       : "memory");
 }
 
+// A contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory, counted on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Makes this thread's ordinary shared-memory writes visible to the
 // asynchronous proxy (TMA, wgmma operand reads) before a barrier hands the
 // memory over.

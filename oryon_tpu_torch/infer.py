@@ -224,7 +224,7 @@ class OryonPredictor:
         # several GPUs: each request batch split over the data axis
         # (replicated params; optional TP axis), as run_test_torch.py does
         B = int(batch_size or cfg.dataset.batch_size)
-        mesh = serving_mesh(cfg.mesh.data, cfg.mesh.model, B, label="serving")
+        mesh = serving_mesh(cfg.mesh.data, cfg.mesh.model, B, label="serving", device=device)
         if mesh is not None and cfg.mesh.model > 1:
             shard_params_tp(model, mesh)
         return cls(model, pointdsc, device=device, batch_size=B, mesh=mesh,

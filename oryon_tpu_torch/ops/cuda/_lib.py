@@ -43,6 +43,8 @@ SIGNATURES = {
                                               _F, _I, _P],
     "oryon_mha_lanes_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_mha_lanes_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_mha_lanes_bwd_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                       _I, _P],
     "oryon_flash_mha_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_flash_mha_wgmma_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_packed_window_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,

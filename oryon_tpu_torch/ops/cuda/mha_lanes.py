@@ -30,11 +30,16 @@ serves which shape (``kernel_entry``):
 
 Gradients: on a ``qkv`` that requires one (the towers under
 ``train_towers``), the call goes through ``MhaLanesFunction``: forward is the
-kernel above, backward is K1's backward kernel (``backward_entry``):
-``csrc/attn_bwd.cuh`` on the tensor cores for bf16 (entry
-``oryon_mha_lanes_bwd_bf16``) and on the CUDA cores for f32
-(``oryon_mha_lanes_bwd_f32``), head dimensions 16, 32, 64 and 128, counted
-on ``launches_bwd``.  It returns d qkv and, when kmask needs one, d kmask:
+kernel above, backward is K1's backward kernel (``backward_entry``), counted
+on ``launches_bwd``:
+
+- head dimension 64 in bf16 (the ViT-L tower): the wgmma + TMA kernels of
+  ``csrc/attn_bwd_wgmma.cuh``, entry ``oryon_mha_lanes_bwd_wgmma_bf16``;
+- head dimensions 16, 32 and 128 in bf16: the ``mma.sync`` kernels of
+  ``csrc/attn_bwd.cuh``, entry ``oryon_mha_lanes_bwd_bf16``;
+- f32, head dimensions 16-128: its CUDA-core kernels, entry
+  ``oryon_mha_lanes_bwd_f32``.
+  It returns d qkv and, when kmask needs one, d kmask:
 the JAX package's ``_bwd`` (``jax.vjp`` of its ``_reference_mha``),
 straight-through for ``qk_int8`` (the gradient ignores the quantisation, so
 both modes launch the same kernel).  On the CPU both directions run the
@@ -58,6 +63,10 @@ launches = 0      # K1 launches so far; callers may reset it to 0
 launches_i8 = 0   # K1-i8 launches (pre-pass and main kernel count as one)
 launches_bwd = 0  # K1 backward launches (its kernels count as one)
 PREPASS, ATTEND = 1, 2   # phases of the head-dim-64 K1-i8 entry; both = 3
+# phases of the head-dim-64 backward entry: the query-tile kernel (row
+# statistics, dQ), the key-tile kernel (dK, dV, d kmask); both = 3
+BWD_DQ, BWD_DKV = 1, 2
+BWD_WGMMA = "oryon_mha_lanes_bwd_wgmma_bf16"
 
 
 def _quantise(q: torch.Tensor, k: torch.Tensor, scale: float):
@@ -218,7 +227,7 @@ def backward_entry(head_dim: int, dtype=torch.bfloat16) -> str:
         return "oryon_mha_lanes_bwd_f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"K1's backward takes a bf16 or f32 qkv, got {dtype}")
-    return "oryon_mha_lanes_bwd_bf16"
+    return BWD_WGMMA if head_dim == 64 else "oryon_mha_lanes_bwd_bf16"
 
 
 def reference_mha_backward(qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor,
@@ -234,25 +243,60 @@ def reference_mha_backward(qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.T
     return grads[0], (grads[1] if want_mask else None)
 
 
-def _launch_backward(lib, qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor,
-                     heads: int, scale: float, want_mask: bool, stream: int):
-    """Allocate d qkv, d kmask and the scratch (row statistics, per-(image,
-    head) sums of dS), call the backward entry on ``lib`` and count the
-    launch."""
-    global launches_bwd
+def backward_stats(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The backward's scratch of row statistics (m, 1 / l, D), [3, B * heads
+    * Lp] f32 with Lp = L rounded up to whole tiles of 64, as the head-dim-64
+    entry keeps each (image, head)'s rows."""
+    B, L, _ = qkv.shape
+    return torch.empty((3, B * heads * -(-L // 64) * 64), dtype=torch.float32,
+                       device=qkv.device)
+
+
+def _call_backward(lib, entry: str, qkv: torch.Tensor, kmask: torch.Tensor,
+                   dout: torch.Tensor, heads: int, scale: float, want_mask: bool,
+                   stream: int, phases: int = BWD_DQ | BWD_DKV, stats=None):
+    """Allocate d qkv, d kmask and the scratch (row statistics unless
+    ``stats`` is given, per-(image, head) sums of dS) and call ``entry`` on
+    ``lib`` (``phases`` for the head-dim-64 entry only)."""
     B, L, C3 = qkv.shape
     f32 = dict(dtype=torch.float32, device=qkv.device)
-    fn = getattr(lib, backward_entry(C3 // 3 // heads, qkv.dtype))
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B * heads * L), **f32)
+    if stats is None:
+        stats = backward_stats(qkv, heads)
     colsum = torch.empty((B * heads, L), **f32)
     dkmask = torch.empty((L,), **f32) if want_mask else None
-    err = fn(qkv.data_ptr(), kmask.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-             stats.data_ptr(), colsum.data_ptr(), 0 if dkmask is None else dkmask.data_ptr(),
-             B, L, C3 // 3, heads, float(scale), stream)
-    _lib.check(err, "K1 backward")
-    launches_bwd += 1
+    args = [qkv.data_ptr(), kmask.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            stats.data_ptr(), colsum.data_ptr(), 0 if dkmask is None else dkmask.data_ptr(),
+            B, L, C3 // 3, heads, float(scale)]
+    if entry == BWD_WGMMA:
+        args.append(phases)
+    _lib.check(getattr(lib, entry)(*args, stream), "K1 backward")
     return dqkv, dkmask
+
+
+def _launch_backward(lib, qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor,
+                     heads: int, scale: float, want_mask: bool, stream: int):
+    """Call the backward entry for this shape on ``lib`` and count the
+    launch."""
+    global launches_bwd
+    out = _call_backward(lib, backward_entry(qkv.shape[-1] // 3 // heads, qkv.dtype), qkv,
+                         kmask, dout, heads, scale, want_mask, stream)
+    launches_bwd += 1
+    return out
+
+
+def run_backward_entry(entry: str, qkv: torch.Tensor, kmask: torch.Tensor,
+                       dout: torch.Tensor, heads: int, scale: float, want_mask: bool,
+                       phases: int = BWD_DQ | BWD_DKV, stats=None):
+    """(d qkv, d kmask or None) from a named backward entry on a CUDA
+    device, e.g. the ``mma.sync`` body at head dimension 64, which no route
+    takes, or some ``phases`` of the head-dim-64 entry.  ``stats`` (from
+    ``backward_stats``) is the caller's scratch of row statistics: the
+    key-tile kernel alone (``BWD_DKV``) reads what an earlier ``BWD_DQ``
+    call wrote there.  For holding and timing bodies and kernels apart;
+    counts no launch and checks no argument."""
+    return _call_backward(_lib.library(), entry, qkv, kmask, dout, heads, scale, want_mask,
+                          torch.cuda.current_stream(qkv.device).cuda_stream, phases, stats)
 
 
 def _backward(qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor, heads: int,

@@ -117,13 +117,13 @@ def barrier() -> None:
 class Mesh:
     """The (data, model) grid of the job's ranks and its two process groups:
     ``data_group`` joins the ranks that hold the same parameters (the same
-    model coordinate), ``model_group`` those that hold the same rows."""
+    model coordinate), ``model_group`` those that hold the same rows.
+    ``device_type`` is the ranks' ("cuda" or "cpu")."""
 
-    def __init__(self, n_data: int, n_model: int):
+    def __init__(self, n_data: int, n_model: int, device_type: str):
         from torch.distributed.device_mesh import init_device_mesh
 
-        dev_type = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device_mesh = init_device_mesh(dev_type, (n_data, n_model),
+        self.device_mesh = init_device_mesh(device_type, (n_data, n_model),
                                             mesh_dim_names=("data", "model"))
         self.shape = {"data": n_data, "model": n_model}
         self.data_group = self.device_mesh.get_group("data")
@@ -135,26 +135,28 @@ class Mesh:
         return batch_rows(B, self.data_rank, self.shape["data"], accum_steps)
 
 
-def make_mesh(n_data: int = -1, n_model: int = 1) -> Mesh:
+def make_mesh(n_data: int = -1, n_model: int = 1, *, device) -> Mesh:
     """``data x model`` mesh over every rank of the job; ``n_data=-1`` means
-    all ranks // ``n_model``, as ``oryon_tpu.parallel.make_mesh``."""
+    all ranks // ``n_model``, as ``oryon_tpu.parallel.make_mesh``.  The mesh
+    lies on the type of ``device``, the ranks' device (``--device cpu`` on a
+    machine with a card gives a CPU mesh)."""
     n = world_size()
     if n_data == -1:
         n_data = n // n_model
     if n_data * n_model != n:
         raise ValueError(f"mesh data={n_data} model={n_model} needs "
                          f"{n_data * n_model} ranks; the job has {n}")
-    return Mesh(n_data, n_model)
+    return Mesh(n_data, n_model, torch.device(device).type)
 
 
 def serving_mesh(n_data: int, n_model: int, batch_size: int,
-                 label: str = "eval") -> Optional[Mesh]:
+                 label: str = "eval", *, device) -> Optional[Mesh]:
     """The eval / serving mesh policy of ``oryon_tpu.parallel.serving_mesh``,
     with "devices" read as the job's ranks: None (single-device) for a
     process that is not distributed or a job of one rank, and, with a
     WARNING, when the mesh needs more ranks than the job has or the batch
     does not divide over ``data``.  Callers with ``n_model > 1`` apply
-    ``shard_params_tp`` themselves."""
+    ``shard_params_tp`` themselves; ``device`` as for ``make_mesh``."""
     n_dev = world_size()
     if n_dev <= 1:
         return None
@@ -165,7 +167,7 @@ def serving_mesh(n_data: int, n_model: int, batch_size: int,
               f"{max(eff_data, 1) * n_model} devices but only {n_dev} "
               f"available; running single-device")
         return None
-    mesh = make_mesh(n_data, n_model)
+    mesh = make_mesh(n_data, n_model, device=device)
     if batch_size % mesh.shape["data"] != 0:
         print(f"WARNING: batch_size {batch_size} not divisible by data axis "
               f"{mesh.shape['data']}; running single-device")

@@ -108,7 +108,8 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
     pcfg = make_pipeline_config(cfg, solver)
     # several GPUs: the batch split over the data axis (replicated params;
     # an optional TP axis shards the towers)
-    mesh = serving_mesh(cfg.mesh.data, cfg.mesh.model, cfg.dataset.batch_size, label="eval")
+    mesh = serving_mesh(cfg.mesh.data, cfg.mesh.model, cfg.dataset.batch_size, label="eval",
+                        device=device)
     if mesh is not None:
         if cfg.mesh.model > 1:
             shard_params_tp(model, mesh)

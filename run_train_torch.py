@@ -123,7 +123,7 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
     device = init_distributed(device) if launched() else torch.device(device)
     mesh = None
     if is_distributed():
-        mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
+        mesh = make_mesh(cfg.mesh.data, cfg.mesh.model, device=device)
     elif cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
         raise ValueError(f"mesh.data={cfg.mesh.data}, mesh.model={cfg.mesh.model} "
                          "needs several ranks: launch with torchrun --nproc-per-node N")

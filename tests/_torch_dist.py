@@ -161,17 +161,25 @@ def dp_suite(sd, pd_sd, pd_cfg, views, text, noise, valid, corr_valid):
     from oryon_tpu_torch.pipeline import Noise, PipelineConfig, build_pipeline
 
     res = {}
-    mesh = make_mesh(-1, 1)
+    mesh = make_mesh(-1, 1, device="cpu")
     coords = [None] * dist.get_world_size()
     dist.all_gather_object(coords, (mesh.data_rank, mesh.model_rank))
     res["coords"] = coords
     res["shape"] = mesh.shape
-    res["tp_shape"] = make_mesh(-1, 2).shape
+    res["tp_shape"] = make_mesh(-1, 2, device="cpu").shape
     try:
-        make_mesh(3, 1)
+        make_mesh(3, 1, device="cpu")
         res["bad_mesh"] = None
     except ValueError as e:
         res["bad_mesh"] = str(e)
+    # the mesh lies on the ranks' device, whether or not a card is visible
+    visible = torch.cuda.is_available
+    torch.cuda.is_available = lambda: True
+    try:
+        res["mesh_device"] = [mesh.device_mesh.device_type,
+                              make_mesh(-1, 1, device="cpu").device_mesh.device_type]
+    finally:
+        torch.cuda.is_available = visible
 
     model = tiny_model(sd).eval()
     pd = PointDSC(PointDSCConfig(**pd_cfg))
@@ -205,7 +213,7 @@ def tp_suite(sd, swin_sd, clip_sd, clip_cfg, x_swin, x_clip, a, q, ids, valid, c
     from oryon_tpu_torch.parallel.tp import shard_dims, shard_params_tp
     from oryon_tpu_torch.train import create_train_state, make_train_step
 
-    mesh = make_mesh(1, 2)
+    mesh = make_mesh(1, 2, device="cpu")
     res = {}
     model = shard_params_tp(tiny_model(sd), mesh).eval()
     res["shards"] = shard_dims(model)
@@ -254,7 +262,7 @@ def dp_tp_suite(sd, valid, corr_valid):
     """4 ranks as data 2 x model 2: the SGD step, frozen and trained towers."""
     from oryon_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(2, 2)
+    mesh = make_mesh(2, 2, device="cpu")
     return {"frozen": sgd_step(sd, mesh, valid, corr_valid, 1),
             "towers": sgd_step(sd, mesh, valid, corr_valid, 1, train_towers=True)}
 

@@ -150,7 +150,8 @@ def tiled_attention_model(q, k, v, scale: float, kmask=None, seg=None,
     return (o / l_run).to(q.dtype)
 
 
-def k1_backward_model(qkv, kmask, dout, heads: int, scale: float, tile: int = 64):
+def k1_backward_model(qkv, kmask, dout, heads: int, scale: float, tile: int = 64,
+                      log2: bool = False):
     """Pure-PyTorch model of the arithmetic of K1's backward kernels
     (``oryon_tpu_torch/csrc/attn_bwd.cuh``) on the packed [B, L, 3C] torch
     tensors: (d qkv in qkv's dtype, d kmask f32).
@@ -162,33 +163,40 @@ def k1_backward_model(qkv, kmask, dout, heads: int, scale: float, tile: int = 64
     as the max moves, so D = that sum / l is rowsum(P * dP).  Then P =
     exp(S - m) / l, dS = P (dP - D), and the three products take bf16(P) and
     bf16(dS * scale) (the input dtype) with f32 sums, rounded once; d kmask is
-    the sum of dS over images, heads and query rows."""
+    the sum of dS over images, heads and query rows.  ``log2=True`` models the
+    head-dim-64 kernels (``csrc/attn_bwd_wgmma.cuh``): the logits in log2
+    units (the rounded sum times scale * log2(e) plus the mask times
+    log2(e)) and exp2 for exp."""
+    import math
+
     import torch
 
     B, L, C3 = qkv.shape
     C = C3 // 3
     hd = C // heads
     dt = qkv.dtype
+    e = math.log2(math.e) if log2 else 1.0
+    exp = torch.exp2 if log2 else torch.exp
 
     def rnd(x):
         return x.to(dt).float()
     q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2).float() for t in qkv.split(C, -1))
     do = dout.reshape(B, L, heads, hd).transpose(1, 2).float()
-    mask = kmask.float()
+    mask = kmask.float() * e
     m = torch.full((B, heads, L, 1), float("-inf"))
     l = torch.zeros(B, heads, L, 1)
     dd = torch.zeros(B, heads, L, 1)
     for k0 in range(0, L, tile):
         ks = slice(k0, min(k0 + tile, L))
-        s = rnd(q @ k[:, :, ks].mT) * scale + mask[ks]
+        s = rnd(q @ k[:, :, ks].mT) * (scale * e) + mask[ks]
         dp = rnd(do @ v[:, :, ks].mT)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp(m - m_new)
-        x = torch.exp(s - m_new)
+        corr = exp(m - m_new)
+        x = exp(s - m_new)
         l = l * corr + x.sum(-1, keepdim=True)
         dd = dd * corr + (x * dp).sum(-1, keepdim=True)
         m = m_new
-    p = torch.exp(rnd(q @ k.mT) * scale + mask - m) / l
+    p = exp(rnd(q @ k.mT) * (scale * e) + mask - m) / l
     ds = p * (rnd(do @ v.mT) - dd / l)
     dsc = rnd(ds * scale)
     grads = (dsc @ k, dsc.mT @ q, rnd(p).mT @ do)
@@ -246,10 +254,12 @@ class StubLib:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, len(args)))
+            self.args.append(args)
             return 0
         return entry
 

@@ -545,10 +545,13 @@ def test_run_test_torch_main_at_small_size_on_the_card(cuda, tmp_path, capsys):
 
 
 # K1's backward: B, L, heads, head dim, first padded key, keys 0-63 masked
-# too, dtype.  bf16 runs the tensor-core kernels, f32 the CUDA-core ones.
+# too, dtype.  bf16 runs the tensor-core kernels (wgmma at head dim 64,
+# mma.sync at 16 / 32 / 128), f32 the CUDA-core ones.
 K1_BWD_CASES = [(2, 130, 4, 64, 120, False, torch.bfloat16),
                 (2, 577, 8, 64, 577, False, torch.bfloat16),   # the tower's L
                 (2, 640, 4, 64, 577, True, torch.bfloat16),    # a masked leading tile
+                (2, 64, 4, 64, 64, False, torch.bfloat16),     # exactly one tile
+                (16, 640, 16, 64, 577, False, torch.bfloat16),  # the padded tower
                 (2, 100, 4, 16, 90, False, torch.bfloat16),
                 (2, 77, 4, 32, 70, False, torch.bfloat16),
                 (1, 70, 2, 128, 64, False, torch.bfloat16),
@@ -607,6 +610,32 @@ def test_k1_backward_kernel_matches_plain(cuda, B, L, H, hd, real, lead, dtype):
     again, again_m = mha_lanes._backward(qkv, m, dout, H, scale, True)
     torch.cuda.synchronize()
     assert torch.equal(dqkv, again) and torch.equal(dm, again_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,real,lead", [(2, 130, 4, 120, False), (2, 577, 8, 577, False),
+                                             (2, 640, 4, 577, True), (2, 1, 2, 1, False),
+                                             (2, 64, 4, 64, False), (1, 700, 2, 650, False)])
+def test_k1_backward_wgmma_matches_mma_sync_body(cuda, B, L, H, real, lead):
+    """At head dim 64 the wgmma body (the route) against the mma.sync body on
+    the same inputs, within the backward's tolerance of each other and both
+    of the plain version, d qkv and d kmask; the wgmma body twice bitwise
+    equal; neither timed-only call counts a launch.  L = 700 is past the
+    640 the tower pads to."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    qkv, m, dout = _k1_bwd_inputs(cuda, B, L, H, 64, real, lead, torch.bfloat16)
+    before = mha_lanes.launches_bwd
+    got = [mha_lanes.run_backward_entry(entry, qkv, m, dout, H, 0.125, True)
+           for entry in (mha_lanes.BWD_WGMMA, "oryon_mha_lanes_bwd_bf16", mha_lanes.BWD_WGMMA)]
+    ref = mha_lanes.reference_mha_backward(qkv, m, dout, H, 0.125, True)
+    torch.cuda.synchronize()
+    assert mha_lanes.launches_bwd == before
+    for i, name in enumerate(("d qkv", "d kmask")):
+        _assert_bwd_close(got[0][i], got[1][i], torch.bfloat16, f"wgmma vs mma.sync {name}")
+        _assert_bwd_close(got[0][i], ref[i], torch.bfloat16, f"wgmma {name}")
+        _assert_bwd_close(got[1][i], ref[i], torch.bfloat16, f"mma.sync {name}")
+        assert torch.equal(got[0][i], got[2][i])
 
 
 @pytest.mark.cuda

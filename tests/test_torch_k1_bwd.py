@@ -92,16 +92,35 @@ def test_kernel_model_matches_plain_backward(dtype, L):
     _close(got_m.numpy(), ref_m.numpy(), dtype, "d kmask")
 
 
+@pytest.mark.parametrize("L", [577, 130, 64, 1])
+def test_log2_model_matches_plain_backward(L):
+    """The model of the head-dim-64 kernels' arithmetic (logits in log2
+    units, exp2) against autograd through ``reference_mha`` at bf16: the
+    tower's L, several tiles, one tile and a single key."""
+    from oryon_tpu_torch.ops.cuda.mha_lanes import reference_mha_backward
+
+    qkv, kmask, g = _inputs(L, 64, seed=10)
+    x, m, gt = (torch.from_numpy(a) for a in (qkv, kmask, g))
+    x, gt = x.bfloat16(), gt.bfloat16()
+    got, got_m = k1_backward_model(x, m, gt, H, 0.125, log2=True)
+    ref, ref_m = reference_mha_backward(x, m, gt, H, 0.125, True)
+    _close(got.float().numpy(), ref.float().numpy(), "bf16", "d qkv")
+    _close(got_m.numpy(), ref_m.numpy(), "bf16", "d kmask")
+
+
 @pytest.mark.parametrize("want_mask", [False, True])
 @pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "oryon_mha_lanes_bwd_bf16"),
                                          (torch.float32, "oryon_mha_lanes_bwd_f32")])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_backward_wrapper_chooses_the_entry(hd, dtype, entry, want_mask):
-    """Every head dim of either dtype goes to its dtype's entry with the
-    arguments its signature lists; d kmask is allocated only when asked for;
-    one launch is counted on ``launches_bwd`` (K1's own count unchanged)."""
+    """Every head dim of either dtype goes to its dtype's entry (head dim 64
+    in bf16 to the wgmma entry, with both phases) with the arguments its
+    signature lists; d kmask is allocated only when asked for; one launch is
+    counted on ``launches_bwd`` (K1's own count unchanged)."""
     from oryon_tpu_torch.ops.cuda import _lib, mha_lanes
 
+    if hd == 64 and dtype == torch.bfloat16:
+        entry = "oryon_mha_lanes_bwd_wgmma_bf16"
     stub = StubLib()
     qkv = torch.zeros(1, 8, 3 * 2 * hd, dtype=dtype)
     before = (mha_lanes.launches, mha_lanes.launches_bwd)
@@ -113,6 +132,32 @@ def test_backward_wrapper_chooses_the_entry(hd, dtype, entry, want_mask):
     assert stub.calls == [(entry, len(_lib.SIGNATURES[entry]))]
     assert mha_lanes.backward_entry(hd, dtype) == entry
     assert (mha_lanes.launches, mha_lanes.launches_bwd) == (before[0], before[1] + 1)
+    if entry == mha_lanes.BWD_WGMMA:
+        assert stub.args[0][-2] == mha_lanes.BWD_DQ | mha_lanes.BWD_DKV
+
+
+@pytest.mark.parametrize("entry,phases", [
+    ("oryon_mha_lanes_bwd_bf16", None),
+    ("oryon_mha_lanes_bwd_wgmma_bf16", 1), ("oryon_mha_lanes_bwd_wgmma_bf16", 2),
+    ("oryon_mha_lanes_bwd_wgmma_bf16", 3)])
+def test_backward_entry_by_name_passes_its_phases(entry, phases):
+    """The timed-only path (``run_backward_entry``'s call): any named entry
+    with its signature's arguments, the phases to the head-dim-64 entry only,
+    and no launch counted."""
+    from oryon_tpu_torch.ops.cuda import _lib, mha_lanes
+
+    stub = StubLib()
+    qkv = torch.zeros(1, 8, 3 * 2 * 64, dtype=torch.bfloat16)
+    before = mha_lanes.launches_bwd
+    kw = {} if phases is None else {"phases": phases}
+    dqkv, dm = mha_lanes._call_backward(stub, entry, qkv, torch.zeros(8),
+                                        torch.zeros(1, 8, 2 * 64, dtype=torch.bfloat16), 2,
+                                        0.125, True, 0, **kw)
+    assert dqkv.shape == qkv.shape and dm.shape == (8,)
+    assert stub.calls == [(entry, len(_lib.SIGNATURES[entry]))]
+    if phases is not None:
+        assert stub.args[0][-2] == phases
+    assert mha_lanes.launches_bwd == before
 
 
 def test_backward_refuses_what_has_no_kernel(monkeypatch):

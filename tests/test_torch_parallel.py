@@ -65,8 +65,9 @@ def test_serving_mesh_policy_prints_the_jax_lines(monkeypatch, n_dev, n_data, n_
     ref, ref_out = _printed(lambda: jmesh.serving_mesh(n_data, n_model, batch, "eval"))
     monkeypatch.setattr(tmesh, "world_size", lambda: n_dev)
     monkeypatch.setattr(tmesh, "make_mesh",
-                        lambda d, m: _FakeMesh(n_dev // m if d == -1 else d, m))
-    got, got_out = _printed(lambda: tmesh.serving_mesh(n_data, n_model, batch, "eval"))
+                        lambda d, m, device: _FakeMesh(n_dev // m if d == -1 else d, m))
+    got, got_out = _printed(lambda: tmesh.serving_mesh(n_data, n_model, batch, "eval",
+                                                       device="cpu"))
     assert got_out == ref_out
     assert (got is None) == (ref is None)
     if ref is not None:
@@ -171,6 +172,8 @@ def test_mesh_layout_over_two_ranks(dp):
     assert res["coords"] == [(0, 0), (1, 0)]
     assert res["tp_shape"] == {"data": 1, "model": 2}
     assert "needs 3 ranks" in res["bad_mesh"]
+    # ranks joined on the CPU get a CPU mesh even where a card is visible
+    assert res["mesh_device"] == ["cpu", "cpu"]
 
 
 def _single_device_pipe(slice_models, inputs, **kw):  # noqa: F811

@@ -19,7 +19,11 @@ Phases, each printing one line with its result and its time:
                (L = 640, 65, 1, one image, a fully masked leading key tile),
                one head-dim-32 case on the WMMA kernel, two launches bitwise
                equal, the host time of one wrapper call, and the f32 mode
-               (CUDA cores) at the small and tiny towers' shapes to 1e-5
+               at the small and tiny towers' path shapes ([4 / 16 / 64, 65,
+               192], [16, 17, 192]) and the edges of its routes to 1e-5: the
+               one-block-a-head kernel and the streaming body it replaced
+               there, each timed with the launch queue kept full and by host
+               us a call, in turns, beside SDPA in f32 and the bound
   4. k1i8      the same with int8 logits (int8 wgmma behind a quantising
                pre-pass) at the padded ViT-L shape and the same edges; the
                pre-pass alone gives the plain version's absmax and int8 codes
@@ -57,7 +61,8 @@ Phases, each printing one line with its result and its time:
                served model's pipeline with MatchParams(precision="fp32") on
                a batch of 8 beside the default on the same draws (K1 24, K2
                fp32 1, masks equal); then the small model (f32 towers)
-               answers 2 requests through K1's f32 mode and K2
+               answers 2 requests through K1's f32 mode (the
+               one-block-a-head kernel, by the profiler) and K2
  11. ckpt      the served model is saved with the port's save_checkpoint into
                a temporary experiment; OryonPredictor.from_config (another
                init seed, eval.ckpt=last, PointDSC from a fake published
@@ -128,22 +133,33 @@ Phases, each printing one line with its result and its time:
                memory; in turns with the mma.sync body, held against the
                plain version too; its query-tile and key-tile kernels timed
                alone), at [16, 640, 3072] with keys >= 577 masked and
-               qk_int8 off and on, and in f32 at the small tower's shape
- 20. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
+               qk_int8 off and on
+ 20. train_towers_small  steps of the small model (f32 towers) at B=32 with
+               its towers trained: K1 4 and K1's backward 2 a step, each one
+               CUDA kernel by the profiler (the one-block-a-head kernels),
+               the loss finite, the tower and fusion/decoder gradients vs
+               the einsum tower's (cosine > 0.999), the step's device ms in
+               turns with the routes held to the former bodies; K1's f32
+               backward at the path shapes and edges against its plain
+               version (d qkv and d kmask, two launches bitwise equal,
+               kernels a call: a captured CUDA graph's kernel nodes), each
+               body timed in turns (queue full, host
+               us, through autograd) beside SDPA's f32 backward
+ 21. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
                train step over make_mesh(-1, 1) (gradient all-reduce, global
                loss normaliser, global draws) equals the plain step bitwise
                at full width, B=32; both timed in turns
- 21. dp2       two gloo ranks spawned on the one card (NCCL refuses two ranks
+ 22. dp2       two gloo ranks spawned on the one card (NCCL refuses two ranks
                on one GPU), mesh.data=2: 3 steps with run_train.py's defaults
                at B=32 (16 a rank) against one device on the same batches and
                draws (losses within rel 1e-3, fusion/decoder gradient cosine
                above 0.9999); a served batch of 8 (4 a rank) bitwise one
                device's runs of each rank's pairs with the same draws; K1 and
                K2 launches per rank
- 22. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
+ 23. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
                tower and featmaps against the unsharded model's (cosine above
                0.999), served masks; K1 at 8 heads a rank
- 23. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
+ 24. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -188,6 +204,7 @@ ADD_TOL = 1e-4                    # ADD and ADD-S of a recovered pose, m
 TIMED_LAUNCHES = 20               # per kernel timing run (K2's CUDA-core kernel: 3)
 TIMED_BATCHES = 3                 # warm B=8 batches timed for pairs/s
 STEP_TURN_ITERS = 2               # train_towers steps a turn, K1 bwd wgmma vs mma.sync body
+SMALL_STEP_TURN_ITERS = 10        # train_towers_small steps a turn, K1 f32 bodies
 DEVICE = "cuda"                   # the CPU rehearsal sets "cpu"
 
 
@@ -353,9 +370,10 @@ SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")   # bf16 wgmma, int8 wgmma, TMA tile lo
 
 def _sass_counts(nvcc: str, lib_path: str):
     """Per wgmma kernel in the built library (the attention kernel's three
-    modes, the matcher's two and the window attention's two), how many
-    instructions of each of SASS_OPS its machine code holds; None where the
-    toolkit has no cuobjdump."""
+    modes, the matcher's two and the window attention's two) and per
+    one-block-a-head f32 kernel of K1 (each head dim), how many instructions
+    of each of SASS_OPS its machine code holds; None where the toolkit has
+    no cuobjdump."""
     import os
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -368,7 +386,8 @@ def _sass_counts(nvcc: str, lib_path: str):
     for chunk in out.stdout.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
         if any(k in name for k in ("attn_wgmma_kernel", "match_wgmma_kernel",
-                                   "match_tf32_kernel", "swin_wgmma_kernel")):
+                                   "match_tf32_kernel", "swin_wgmma_kernel",
+                                   *K1_F32_HEAD_KERNELS)):
             counts[name] = tuple(chunk.count(op) for op in SASS_OPS)
     return counts
 
@@ -388,7 +407,9 @@ def phase_build():
         # attn_wgmma_kernel<mode, ...>: 0 K1, 1 K5, 2 K1-i8 (int8 Q K^T, bf16
         # P V); match_wgmma_kernel: K2 bf16; match_tf32_kernel: K2 fp32 (TF32
         # products, HGMMA too); swin_wgmma_kernel<band, ...>: false K3, true
-        # K4.  All load their tiles by TMA.
+        # K4.  All load their tiles by TMA; so do K1's f32 kernels and its f32
+        # backward at the small towers' shapes, which multiply on the CUDA
+        # cores (one kernel a head dim).
         want = {"K1": ("attn_wgmma_kernelILi0E", ("HGMMA",)),
                 "K5": ("attn_wgmma_kernelILi1E", ("HGMMA",)),
                 "K1-i8": ("attn_wgmma_kernelILi2E", ("HGMMA", "IGMMA")),
@@ -396,7 +417,10 @@ def phase_build():
                 "K2 fp32": ("match_tf32_kernel", ("HGMMA",)),
                 "K3": ("swin_wgmma_kernelILb0E", ("HGMMA",)),
                 "K4": ("swin_wgmma_kernelILb1E", ("HGMMA",))}
-        check(len(sass) == len(want), f"wgmma kernels in the library: {sorted(sass)}")
+        want.update({f"K1 f32 hd {hd}": (f"mha_f32_head_kernelILi{hd}E", ()) for hd in (16, 32)})
+        want.update({f"K1 bwd f32 hd {hd}": (f"mha_bwd_f32_head_kernelILi{hd}E", ())
+                     for hd in (16, 32)})
+        check(len(sass) == len(want), f"TMA kernels in the library: {sorted(sass)}")
         found = {}
         for label, (key, ops) in want.items():
             hits = [c for name, c in sass.items() if key in name]
@@ -406,7 +430,7 @@ def phase_build():
                   and (got["IGMMA"] == 0 or "IGMMA" in ops),
                   f"{label}: SASS instruction counts {got}, expected {ops} and UTMALDG")
             found[label] = hits[0]
-        line += f"; wgmma kernels' SASS ({'/'.join(SASS_OPS)}): " + ", ".join(
+        line += f"; TMA kernels' SASS ({'/'.join(SASS_OPS)}): " + ", ".join(
             f"{label} {'/'.join(map(str, c))}" for label, c in found.items())
     return {"line": line}
 
@@ -419,9 +443,20 @@ K1_EDGES = (("L=640 unpadded", 2, 640, 64, 640, False), ("L=65", 2, 65, 64, 65, 
             ("masked leading tile", 2, 640, 64, 577, True))
 K1_OTHER_HD = ("hd=32", 2, 577, 32, 560, False)
 # K1's f32 mode on the small and tiny towers (ViT at 112^2 and 56^2, patch 14:
-# 1 + 8^2 and 1 + 4^2 tokens, width 64, 4 heads of 16): [B, L, 3C]
-K1_F32_CASES = (("small", (2, 65, 192)), ("tiny", (2, 17, 192)))
+# 1 + 8^2 and 1 + 4^2 tokens, width 64, 4 heads of 16), [B, L, 3C] as their
+# paths run it: serve_small (2 pairs), a served batch of 8, a train_towers
+# step at B=32, a tiny batch of 8.  The one-block-a-head kernels serve them;
+# K1_F32_OLD are the bodies they replaced (the streaming forward, the
+# two-kernel backward), which serve longer L and wider heads and are timed
+# beside them.  K1_F32_EDGES: L of one key, of the longest a block holds,
+# one more (the streaming body) and head dim 32.
+K1_F32_PATHS = ((4, 65, 192), (16, 65, 192), (64, 65, 192), (16, 17, 192))
+K1_F32_EDGES = ((2, 1, 192), (2, 128, 192), (2, 129, 192), (2, 128, 384))
 K1_F32_HEADS, K1_F32_TOL = 4, 1e-5
+K1_F32_OLD = ("oryon_fused_mha_lanes_f32", "oryon_mha_lanes_bwd_f32")
+K1_F32_HEAD_KERNELS = ("mha_f32_head_kernel", "mha_bwd_f32_head_kernel")
+K1_F32_OLD_KERNELS = ("mha_lanes_f32_kernel", "dq_f32_kernel", "dkv_f32_kernel",
+                      "colsum_kernel")
 
 
 def _k1_case(torch, mha_lanes, g, B, L, hd, real, lead, qk_int8=False):
@@ -432,6 +467,21 @@ def _k1_case(torch, mha_lanes, g, B, L, hd, real, lead, qk_int8=False):
     scale = hd ** -0.5
     return (mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale, qk_int8),
             mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale, qk_int8))
+
+
+def _f32_times_txt(times: dict) -> str:
+    """Per path shape: each body's device ms with the queue full and host us
+    a call (and, for the backward, ms through autograd and kernels a call
+    without and with d kmask), the plain version, SDPA, the bound."""
+    parts = []
+    for shape, r in times.items():
+        body = "; ".join(
+            f"{b} {r['ms'][b]:.4f} ms / {r['host_us'][b]:.1f} us"
+            + (f" / autograd {r['grad_ms'][b]:.4f} ms / kernels {r['kernels'][b]}"
+               if "grad_ms" in r else "") for b in r["ms"])
+        parts.append(f"{shape}: {body}; plain {r['plain_ms']:.3f} ms, SDPA "
+                     f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return " | ".join(parts)
 
 
 @phase("k1")
@@ -454,7 +504,10 @@ def phase_k1(torch, iters):
                    for name, *case in K1_EDGES)
     name, *case = K1_OTHER_HD
     other_err = compare(torch, *_k1_case(torch, mha_lanes, g, *case), f"K1 {name}")
-    f32_err, res["f32"] = _k1_f32(torch, mha_lanes, g, iters)
+    f32_err, f32 = _k1_f32(torch, mha_lanes, g, iters)
+    # the kernels line: the small model's train_towers step's shape
+    step = f32[str(list(K1_F32_PATHS[2]))]
+    res["f32"] = dict(step, err=f32_err, ms=step["ms"]["head"])
     res["train"] = _k1_train(torch, mha_lanes, g, iters)
     res["tp"] = _k1_train(torch, mha_lanes, g, iters, K1_TP_SHAPE, K1_HEADS // 2,
                           "a tensor-parallel rank's shape")
@@ -473,9 +526,10 @@ def phase_k1(torch, iters):
                    f"{res['ms'] / res['library_ms']:.2f}; edges "
                    f"({', '.join(n for n, *_ in K1_EDGES)}) max abs err {edge_err:.3e}, "
                    f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise "
-                   f"equal; host {res['host_us']:.1f} us per wrapper call; f32 mode "
-                   + ", ".join(f"{n} {list(shape)} {e:.2e}" for n, shape, e in f32_err)
-                   + f" (tol {K1_F32_TOL}), small: {times_txt(res['f32'])}; training "
+                   f"equal; host {res['host_us']:.1f} us per wrapper call; f32 mode at "
+                   + ", ".join(str(list(s_)) for s_ in K1_F32_PATHS + K1_F32_EDGES)
+                   + f", each body: max abs err {f32_err:.2e} (tol {K1_F32_TOL}); "
+                   + _f32_times_txt(f32) + "; training "
                    f"shape {list(K1_TRAIN_SHAPE)}, no pad mask: max abs err "
                    f"{res['train']['err']:.3e}, {times_txt(res['train'])}; tensor-parallel "
                    f"rank {list(K1_TP_SHAPE)} with {K1_HEADS // 2} heads: max abs err "
@@ -523,38 +577,155 @@ def _k1_rank_shapes(torch, mha_lanes, g):
     return err
 
 
-def _k1_f32(torch, mha_lanes, g, iters):
-    """K1's f32 mode against reference_mha at the small and tiny towers'
-    shapes, tolerance K1_F32_TOL, one launch counted a call; timed, with its
-    bound and SDPA in f32, at the small tower's shape.  Returns (errors,
-    timings)."""
-    errs = []
-    for name, shape in K1_F32_CASES:
-        qkv = torch.randn(shape, generator=g, device=DEVICE)
-        kmask = torch.zeros(shape[1], device=DEVICE)
-        hd = shape[2] // 3 // K1_F32_HEADS
-        before = mha_lanes.launches
-        got = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, hd ** -0.5)
-        check(mha_lanes.launches == before + 1 and got.dtype == torch.float32,
-              f"K1 f32 {name}: no launch counted or dtype {got.dtype}")
-        ref = mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS, hd ** -0.5)
+@contextlib.contextmanager
+def f32_route(mha_lanes, body: str):
+    """K1's f32 routes held to one body while the block runs: "head" leaves
+    the routes as they are (the one-block-a-head kernels at the small and
+    tiny shapes), "old" sends those shapes to K1_F32_OLD."""
+    fwd, bwd = mha_lanes.kernel_entry, mha_lanes.backward_entry
+    if body == "old":
+        def old_fwd(*a, **kw):
+            entry = fwd(*a, **kw)
+            return K1_F32_OLD[0] if entry == "oryon_fused_mha_lanes_f32_head" else entry
+
+        def old_bwd(*a, **kw):
+            entry = bwd(*a, **kw)
+            return K1_F32_OLD[1] if entry == mha_lanes.BWD_F32_HEAD else entry
+        mha_lanes.kernel_entry, mha_lanes.backward_entry = old_fwd, old_bwd
+    try:
+        yield
+    finally:
+        mha_lanes.kernel_entry, mha_lanes.backward_entry = fwd, bwd
+
+
+def bodies_in_turns(mha_lanes, bodies, timer, fn, iters) -> dict:
+    """{body: timer(fn, iters)} with K1's f32 routes held to each body in
+    turn, in the order of ``bodies`` and then reversed; each the mean of its
+    runs."""
+    runs = {b: [] for b in bodies}
+    for body in (*bodies, *reversed(bodies)):
+        with f32_route(mha_lanes, body):
+            runs[body].append(timer(fn, iters))
+    return {b: sum(v) / len(v) for b, v in runs.items()}
+
+
+def device_kernels(torch, fn, enough=bool, attempts: int = 3) -> dict:
+    """{name: launches} of the CUDA kernels fn() ran, by torch.profiler
+    (copies and fills left out), the window opening and closing 5 ms of host
+    time away from fn's work.  On the card the profiler now and then drops
+    launches (a window of 20 calls once showed 4) and never adds one: the
+    window is run again, up to ``attempts`` times, until ``enough`` holds of
+    the counts, each name's largest count kept."""
+    from torch.profiler import ProfilerActivity, profile
+    best: dict = {}
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        check(bool(torch.isfinite(got).all()) and err < K1_F32_TOL,
-              f"K1 f32 {name}: max |kernel - plain| = {err} >= {K1_F32_TOL}")
-        errs.append((name, shape, err))
-    qkv = torch.randn(K1_F32_CASES[0][1], generator=g, device=DEVICE)
-    B, L, C3 = qkv.shape
-    kmask = torch.zeros(L, device=DEVICE)
-    scale = (C3 // 3 // K1_F32_HEADS) ** -0.5
-    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
-    res = {"err": max(e for *_, e in errs)}
-    res.update(timed(lambda: mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale),
-                     lambda: mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS, scale),
-                     lambda: sdpa_packed(torch, qkv, kmask[None, None, None, :], K1_F32_HEADS),
-                     iters))
-    res.update(bound(nbytes(qkv, kmask, out), {"f32": 4 * B * L * L * (C3 // 3)}))
-    return errs, res
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        names = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset"))):
+                names[e.name] = names.get(e.name, 0) + 1
+        for name, n in names.items():
+            best[name] = max(best.get(name, 0), n)
+        if enough(best):
+            break
+    return best
+
+
+def graph_kernels(torch, fn) -> int:
+    """The CUDA kernels one fn() call launches: the kernel nodes of a CUDA
+    graph captured from the call, counted through cuGraphGetNodes: exact
+    where torch.profiler may drop a launch.  fn runs once first on a
+    side stream, outside the capture, as torch.cuda.graph asks."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0)   # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def kernels_named(names: dict, keys) -> int:
+    return sum(n for name, n in names.items() if any(k in name for k in keys))
+
+
+def _f32_inputs(torch, g, shape, grad=False):
+    """qkv [B, L, 3C] f32 (requiring a gradient if asked), kmask [L] (the
+    unpadded towers mask no key) and dout [B, L, C] from a generator."""
+    qkv = torch.randn(shape, generator=g, device=DEVICE).requires_grad_(grad)
+    return (qkv, torch.zeros(shape[1], device=DEVICE),
+            torch.randn((*shape[:2], shape[2] // 3), generator=g, device=DEVICE))
+
+
+def _k1_f32(torch, mha_lanes, g, iters, bodies=("head", "old")):
+    """K1's f32 mode at the towers' path shapes and at K1_F32_EDGES: each
+    body against reference_mha within K1_F32_TOL (4 heads, 32 keys masked at
+    -1e9 where L > 64), one launch counted a call, two launches bitwise
+    equal.  Per path shape: the device ms with the launch queue kept full
+    and the host us of a wrapper call, each body in turns; SDPA in f32 with
+    the queue full; the plain version; the bound.  Returns (max error,
+    {shape: timings})."""
+    err = 0.0
+    for shape in K1_F32_PATHS + K1_F32_EDGES:
+        qkv, kmask, _ = _f32_inputs(torch, g, shape)
+        if shape[1] > 64:
+            kmask[-32:] = -1e9
+        scale = (shape[2] // 3 // K1_F32_HEADS) ** -0.5
+
+        def kernel():
+            return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
+        ref = mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS, scale)
+        for body in bodies:
+            with f32_route(mha_lanes, body):
+                before = mha_lanes.launches
+                got = kernel()
+                check(mha_lanes.launches == before + 1 and got.dtype == torch.float32,
+                      f"K1 f32 {body} {list(shape)}: no launch counted or dtype {got.dtype}")
+                same_twice(torch, kernel, f"K1 f32 {body} {list(shape)}")
+            e = (got - ref).abs().max().item()
+            check(bool(torch.isfinite(got).all()) and e < K1_F32_TOL,
+                  f"K1 f32 {body} {list(shape)}: max |kernel - plain| = {e} >= {K1_F32_TOL}")
+            err = max(err, e)
+    res = {}
+    for shape in K1_F32_PATHS:
+        B, L, C3 = shape
+        qkv, kmask, _ = _f32_inputs(torch, g, shape)
+        scale = (C3 // 3 // K1_F32_HEADS) ** -0.5
+
+        def kernel():
+            return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
+        r = {"ms": bodies_in_turns(mha_lanes, bodies, queued_ms, kernel, iters),
+             "host_us": bodies_in_turns(mha_lanes, bodies, host_us, kernel, 200),
+             "plain_ms": cuda_ms(lambda: mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS,
+                                                                 scale), iters),
+             "library_ms": queued_ms(lambda: sdpa_packed(
+                 torch, qkv, kmask[None, None, None, :], K1_F32_HEADS), iters)}
+        # qkv and kmask read, the [B, L, C] output written; two L x L x hd
+        # products a head
+        r.update(bound(nbytes(qkv, kmask) + qkv.numel() // 3 * 4,
+                       {"f32": 4 * B * L * L * (C3 // 3)}))
+        res[str(list(shape))] = r
+    return err, res
 
 
 @phase("k1i8")
@@ -1662,7 +1833,14 @@ def phase_serve_small(torch):
     layers = model.vision_cfg.layers
     check(counts["k1"] == layers and counts["k2"] == 1 and sum(counts.values()) == layers + 1,
           f"small model: launches {counts}, expected K1 {layers} (f32 mode) and K2 1")
-    return {"line": f"2 requests answered, launches K1 {counts['k1']} (f32 mode) K2 "
+    names = device_kernels(torch, lambda: pred.predict(reqs),
+                           lambda n: kernels_named(n, K1_F32_HEAD_KERNELS[:1]) == layers)
+    head = kernels_named(names, K1_F32_HEAD_KERNELS[:1])
+    old = kernels_named(names, K1_F32_OLD_KERNELS)
+    check(head == layers and old == 0,
+          f"small model: {head} one-block-a-head K1 kernels and {old} of the former body's")
+    return {"line": f"2 requests answered, launches K1 {counts['k1']} (f32 mode, the "
+                    f"one-block-a-head kernel {head} times in a profiled batch) K2 "
                     f"{counts['k2']}", "counts": counts}
 
 
@@ -2868,32 +3046,64 @@ def _k1_bwd_masked(torch, mha_lanes):
     return err
 
 
-def _k1_bwd_f32(torch, mha_lanes, iters):
-    """K1's backward in f32 (CUDA cores) at the small tower's shape, d qkv and
-    d kmask against the plain version within K1_F32_TOL; timed beside it and
-    SDPA's backward in f32, with its bound."""
-    B, L, C3 = K1_F32_CASES[0][1]
+def _k1_bwd_f32(torch, mha_lanes, iters, bodies=("head", "old")):
+    """K1's backward in f32 at the towers' path shapes and at K1_F32_EDGES,
+    each body: d qkv through autograd and d kmask against the plain version
+    within K1_F32_TOL (32 keys masked where L > 64), d qkv the same with and
+    without d kmask, two launches bitwise equal (d kmask too), the kernels a
+    call without and with d kmask (``graph_kernels``).  Per path shape, each
+    body in turns: the device ms of a call with the launch queue kept full,
+    its host us, the ms of a gradient through autograd; SDPA's f32 backward
+    with the queue full, the plain version, the bound.  Returns (max error,
+    {shape: timings})."""
     g = torch.Generator(device=DEVICE).manual_seed(6)
-    qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).requires_grad_()
-    kmask = torch.zeros(L, device=DEVICE)
-    dout = torch.randn((B, L, C3 // 3), generator=g, device=DEVICE)
-    scale = (C3 // 3 // K1_F32_HEADS) ** -0.5
-    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
+    err, res = 0.0, {}
+    for shape in K1_F32_PATHS + K1_F32_EDGES:
+        B, L, C3 = shape
+        qkv, kmask, dout = _f32_inputs(torch, g, shape, grad=True)
+        if L > 64:
+            kmask[-32:] = -1e9
+        scale = (C3 // 3 // K1_F32_HEADS) ** -0.5
+        with f32_route(mha_lanes, bodies[0]):
+            out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
+        ref, ref_m = mha_lanes.reference_mha_backward(qkv, kmask, dout, K1_F32_HEADS, scale,
+                                                      True)
 
-    def kernel():
-        return torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
-    got = kernel()
-    ref, ref_m = mha_lanes.reference_mha_backward(qkv, kmask, dout, K1_F32_HEADS, scale, True)
-    dm = mha_lanes._backward(qkv.detach(), kmask, dout, K1_F32_HEADS, scale, True)[1]
-    res = {"err": max(_bwd_gate(torch, got, ref, "K1 f32 backward", f32=True),
-                      _bwd_gate(torch, dm, ref_m, "K1 f32 backward's d kmask", f32=True))}
-    lib = sdpa_packed(torch, qkv, None, K1_F32_HEADS)
-    res.update(timed(kernel, lambda: mha_lanes.reference_mha_backward(
-        qkv, kmask, dout, K1_F32_HEADS, scale, False),
-        lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters))
-    res.update(bound(nbytes(qkv, kmask, dout, got),
-                     {"f32": 10 * B * L * L * (C3 // 3)}))
-    return res
+        def call(want_mask=False):
+            return mha_lanes._backward(qkv.detach(), kmask, dout, K1_F32_HEADS, scale,
+                                       want_mask)
+
+        def grad():
+            return torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
+        kernels = {}
+        for body in bodies:
+            what = f"K1 f32 backward, {body}, {list(shape)}"
+            with f32_route(mha_lanes, body):
+                before = mha_lanes.launches_bwd
+                got = grad()
+                check(mha_lanes.launches_bwd == before + 1, f"{what}: no launch counted")
+                dq, dm = call(True)
+                check(bool(torch.equal(dq, got)), f"{what}: d qkv moved with d kmask")
+                same_twice(torch, lambda: torch.cat([t.flatten() for t in call(True)]), what)
+                kernels[body] = tuple(graph_kernels(torch, lambda: call(w))
+                                      for w in (False, True))
+            err = max(err, _bwd_gate(torch, got, ref, what, f32=True),
+                      _bwd_gate(torch, dm, ref_m, f"{what}: d kmask", f32=True))
+        if shape not in K1_F32_PATHS:
+            continue
+        lib = sdpa_packed(torch, qkv, None, K1_F32_HEADS)
+        r = {"ms": bodies_in_turns(mha_lanes, bodies, queued_ms, call, iters),
+             "host_us": bodies_in_turns(mha_lanes, bodies, host_us, call, 200),
+             "grad_ms": bodies_in_turns(mha_lanes, bodies, cuda_ms, grad, iters),
+             "kernels": kernels,
+             "plain_ms": cuda_ms(lambda: mha_lanes.reference_mha_backward(
+                 qkv, kmask, dout, K1_F32_HEADS, scale, False), iters),
+             "library_ms": queued_ms(
+                 lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters)}
+        # five L x L x hd products a head: S, dP, dV, dQ, dK
+        r.update(bound(nbytes(qkv, kmask, dout, got), {"f32": 10 * B * L * L * (C3 // 3)}))
+        res[str(list(shape))] = r
+    return err, res
 
 
 @phase("train_towers")
@@ -2924,8 +3134,8 @@ def phase_train_towers(torch, iters, layers):
     # the step in turns with the mma.sync body in the wgmma body's place
     route, swapped = mha_lanes.backward_entry, [0]
 
-    def mma_sync_route(head_dim, dtype=torch.bfloat16):
-        entry = route(head_dim, dtype)
+    def mma_sync_route(*a, **kw):
+        entry = route(*a, **kw)
         if entry != mha_lanes.BWD_WGMMA:
             return entry
         swapped[0] += 1
@@ -2975,7 +3185,6 @@ def phase_train_towers(torch, iters, layers):
 
     res = _k1_bwd_train(torch, mha_lanes, iters)
     masked_err = _k1_bwd_masked(torch, mha_lanes)
-    res["f32"] = _k1_bwd_f32(torch, mha_lanes, iters)
     res.update(peak_step_gib=peak_gib, step_ms=step_ms, launches=step_counts[0]["k1bwd"],
                step_body_ms=step_body_ms)
     res["line"] = (f"full width, B={TRAIN_BATCH}, Swin einsum, K1 fused: 2 steps "
@@ -2999,10 +3208,85 @@ def phase_train_towers(torch, iters, layers):
                    + f"; peak "
                    f"{res['peak_gib']:.3f} GiB (plain {res['plain_peak_gib']:.2f}); "
                    f"{list(K1_BWD_MASKED)}, keys >= {K1_SHAPE[1]} masked, qk_int8 off and on "
-                   f"(the same gradient bitwise): max abs err {masked_err:.3e}; f32 "
-                   f"{list(K1_F32_CASES[0][1])}: {res['f32']['err']:.2e} (tol {K1_F32_TOL}), "
-                   f"{times_txt(res['f32'])}")
+                   f"(the same gradient bitwise): max abs err {masked_err:.3e} (f32: "
+                   f"train_towers_small)")
     return res
+
+
+@phase("train_towers_small")
+def phase_train_towers_small(torch, iters):
+    """The small model (f32 towers, 4 heads of 16) trained with its towers
+    at B=32 through train.make_train_step: K1's f32 mode and its backward on
+    the one-block-a-head kernels, each one CUDA kernel a launch (the
+    profiler's count); the loss finite; the tower and fusion/decoder
+    gradients against the einsum tower's; the step's device ms in turns with
+    the routes held to the bodies those kernels replaced.  Then K1's f32
+    backward at the path shapes (``_k1_bwd_f32``)."""
+    from oryon_tpu_torch.models.layers import random_init_
+    from oryon_tpu_torch.models.oryon import small_oryon
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+    from oryon_tpu_torch.train import create_train_state, loss_and_metrics, make_train_step
+    model = random_init_(small_oryon(train_towers=True),
+                         torch.Generator().manual_seed(17)).to(DEVICE)
+    batch = _synthetic_train_batch(torch, model, TRAIN_BATCH, 7)
+    state, step = create_train_state(model), make_train_step()
+    layers = model.vision_cfg.layers
+
+    def run_step():
+        return step(state, batch, torch.Generator(device=DEVICE).manual_seed(1))
+    run_step()
+    (_, m), counts = _counted(torch, run_step)
+    check(np.isfinite(float(m["loss/total"])), "train_towers_small: loss not finite")
+    check(counts["k1"] == 2 * layers and counts["k1bwd"] == layers
+          and sum(counts.values()) == 3 * layers,
+          f"small train_towers step launches {counts}, expected K1 {layers} + {layers} "
+          f"(recomputed) and K1's backward {layers}")
+    want = {K1_F32_HEAD_KERNELS[0]: 2 * layers, K1_F32_HEAD_KERNELS[1]: layers}
+    names = device_kernels(torch, run_step, lambda n: {
+        k: kernels_named(n, (k,)) for k in K1_F32_HEAD_KERNELS} == want)
+    seen = {k: kernels_named(names, (k,)) for k in K1_F32_HEAD_KERNELS}
+    old = kernels_named(names, K1_F32_OLD_KERNELS)
+    check(seen == want and old == 0,
+          f"small train_towers step ran {seen} and {old} of the former bodies' kernels")
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_and_metrics(model, state.loss_cfg, batch,
+                                   torch.Generator(device=DEVICE).manual_seed(2))
+        loss.backward()
+        tower = torch.cat([p.grad.flatten() for n, p in model.named_parameters()
+                           if n.startswith("vlm_visual.") and p.grad is not None])
+        return loss.item(), _fd_grad(model), tower
+    loss_k, fd_k, tw_k = grads()
+    _set_attn(model, "einsum", "einsum")
+    loss_p, fd_p, tw_p = grads()
+    _set_attn(model, "fused", "einsum")
+    cos = {k: torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+           for k, a, b in (("tower", tw_k, tw_p), ("fusion/decoder", fd_k, fd_p))}
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(min(cos.values()) > GRAD_COS_BOUND and rel < GRAD_LOSS_TOL,
+          f"K1 f32 vs einsum tower: gradient cosines {cos}, loss {loss_k} vs {loss_p}")
+    model.zero_grad(set_to_none=True)
+    step_ms = bodies_in_turns(mha_lanes, ("head", "old"), cuda_ms, run_step,
+                              SMALL_STEP_TURN_ITERS)
+    del model, state, batch
+    torch.cuda.empty_cache()
+    err, times = _k1_bwd_f32(torch, mha_lanes, iters)
+    shape = str(list(K1_F32_PATHS[2]))   # the step's own
+    return {"line": (
+        f"small model, B={TRAIN_BATCH}, towers trained: launches K1 {counts['k1']} a step "
+        f"({layers} + {layers} recomputed) and K1's backward {counts['k1bwd']}, each one "
+        f"kernel ({seen}; the former bodies' kernels 0); loss {float(m['loss/total']):.5f}; "
+        f"gradient vs the einsum tower: cosine "
+        + ", ".join(f"{k} {v:.7f}" for k, v in cos.items())
+        + f" (bound {GRAD_COS_BOUND}), loss rel {rel:.2e}; in turns, device ms a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+        + f"; K1's f32 backward at " + ", ".join(str(list(s_)) for s_ in
+                                                 K1_F32_PATHS + K1_F32_EDGES)
+        + f", each body: max abs err {err:.2e} (tol {K1_F32_TOL} of the largest value); "
+        + _f32_times_txt(times)),
+        "counts": counts, "step_ms": step_ms,
+        "k1bwdf32": dict(times[shape], err=err, ms=times[shape]["ms"]["head"])}
 
 
 # ---- several GPUs: mesh1 (NCCL, one rank), dp2 and tp2 (gloo, two ranks on
@@ -3464,7 +3748,7 @@ def main(argv=None) -> int:
     counts, pred, reqs = phase_serve(torch, TIMED_BATCHES, args.profile)["state"]
     counts.update(phase_serve_optin(torch, pred, reqs, TIMED_BATCHES)["counts"])
     counts.update(phase_serve_fp32(torch, pred, reqs)["counts"])
-    counts["k1f32"] = phase_serve_small(torch)["counts"]["k1"]
+    phase_serve_small(torch)
     layers = pred.model.vision_cfg.layers
     tmp = tempfile.mkdtemp(prefix="oryon_smoke_")
     try:
@@ -3487,6 +3771,10 @@ def main(argv=None) -> int:
         towers = phase_train_towers(torch, TIMED_LAUNCHES, layers)
         measured["k1bwd"], counts["k1bwd"] = towers, towers["launches"]
         torch.cuda.empty_cache()
+        small = phase_train_towers_small(torch, TIMED_LAUNCHES)
+        measured["k1bwdf32"] = small["k1bwdf32"]
+        counts["k1f32"], counts["k1bwdf32"] = small["counts"]["k1"], small["counts"]["k1bwd"]
+        torch.cuda.empty_cache()
         phase_mesh1(torch, tmp, dev["smi"])
         torch.cuda.empty_cache()
         ranks = run_mp2(torch, tmp)
@@ -3499,9 +3787,11 @@ def main(argv=None) -> int:
         ("k1", "fused_mha_lanes_qkv", "mha_lanes.cu", "oryon_tpu/ops/pallas/mha_lanes.py:121"),
         ("k1i8", "fused_mha_lanes_qkv(qk_int8=True)", "mha_lanes.cu",
          "oryon_tpu/ops/pallas/mha_lanes.py:72"),
-        ("k1f32", "fused_mha_lanes_qkv (f32)", "attn_f32.cuh",
+        ("k1f32", "fused_mha_lanes_qkv (f32)", "attn_f32_head.cuh",
          "oryon_tpu/ops/pallas/mha_lanes.py:45"),
         ("k1bwd", "MhaLanesFunction.backward", "attn_bwd_wgmma.cuh",
+         "oryon_tpu/ops/pallas/mha_lanes.py:180"),
+        ("k1bwdf32", "MhaLanesFunction.backward (f32)", "attn_bwd_f32_head.cuh",
          "oryon_tpu/ops/pallas/mha_lanes.py:180"),
         ("k2", "masked_argmin", "match_wgmma.cuh", "oryon_tpu/ops/matching.py:60"),
         ("k2fp32", "masked_argmin (fp32)", "match_tf32.cuh",

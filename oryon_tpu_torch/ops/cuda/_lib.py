@@ -38,11 +38,13 @@ SIGNATURES = {
     "oryon_fused_mha_lanes_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_wgmma_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_fused_mha_lanes_f32_head": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_i8qk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_fused_mha_lanes_i8qk_wgmma_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                               _F, _I, _P],
     "oryon_mha_lanes_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_mha_lanes_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "oryon_mha_lanes_bwd_f32_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "oryon_mha_lanes_bwd_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                        _I, _P],
     "oryon_flash_mha_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

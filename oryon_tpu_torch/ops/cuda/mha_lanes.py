@@ -22,11 +22,19 @@ serves which shape (``kernel_entry``):
 - ``qk_int8=True`` at head dimensions 16, 32 and 128: the WMMA streaming
   kernel with int8 logits (each block quantises the tiles it loads), entry
   ``oryon_fused_mha_lanes_i8qk_bf16``;
-- an f32 qkv (the small and tiny towers), head dimensions 16, 32, 64 and
-  128: the CUDA-core streaming kernel of ``csrc/attn_f32.cuh``, entry
-  ``oryon_fused_mha_lanes_f32``, with the TPU kernel's f32 arithmetic (scale
-  folded into q when exact, f32 exponentials and sums, division last).
-  ``qk_int8`` takes bf16 only, as in the JAX package.
+- an f32 qkv (the small and tiny towers) with L <= 128 at head dimensions 16
+  and 32 (``F32_HEAD_MAX_L``, ``F32_HEAD_DIMS``; the towers run [B, 65, 192]
+  and [B, 17, 192], 4 heads of 16): one block an (image, head), holding the
+  head's whole attention, ``csrc/attn_f32_head.cuh``, entry
+  ``oryon_fused_mha_lanes_f32_head``, with the TPU kernel's f32 arithmetic
+  and order (the exact row maximum over all keys, f32 exponentials and sums,
+  division last);
+- an f32 qkv beyond that (longer L, head dimensions 64 and 128): the
+  CUDA-core streaming kernel of ``csrc/attn_f32.cuh``, entry
+  ``oryon_fused_mha_lanes_f32`` (a running maximum, rescaled per key tile).
+  ``qk_int8`` takes bf16 only, as in the JAX package.  ``run_entry`` runs a
+  named entry uncounted, e.g. the streaming kernel where the route takes the
+  other, for timing.
 
 Gradients: on a ``qkv`` that requires one (the towers under
 ``train_towers``), the call goes through ``MhaLanesFunction``: forward is the
@@ -37,8 +45,14 @@ on ``launches_bwd``:
   ``csrc/attn_bwd_wgmma.cuh``, entry ``oryon_mha_lanes_bwd_wgmma_bf16``;
 - head dimensions 16, 32 and 128 in bf16: the ``mma.sync`` kernels of
   ``csrc/attn_bwd.cuh``, entry ``oryon_mha_lanes_bwd_bf16``;
-- f32, head dimensions 16-128: its CUDA-core kernels, entry
-  ``oryon_mha_lanes_bwd_f32``.
+- f32 where the forward takes its one-block-a-head kernel: one launch, one
+  block an (image, head), the five products with S, P and dS in shared
+  memory, d kmask summed in the same launch by the last block to finish
+  (``csrc/attn_bwd_f32_head.cuh``, entry ``oryon_mha_lanes_bwd_f32_head``;
+  a [B * heads, L] slab and a counter a device, ``head_counter``, only when
+  kmask needs a gradient);
+- f32 beyond that: the CUDA-core kernels of ``csrc/attn_bwd.cuh``, entry
+  ``oryon_mha_lanes_bwd_f32`` (two or three launches).
   It returns d qkv and, when kmask needs one, d kmask:
 the JAX package's ``_bwd`` (``jax.vjp`` of its ``_reference_mha``),
 straight-through for ``qk_int8`` (the gradient ignores the quantisation, so
@@ -67,6 +81,9 @@ PREPASS, ATTEND = 1, 2   # phases of the head-dim-64 K1-i8 entry; both = 3
 # statistics, dQ), the key-tile kernel (dK, dV, d kmask); both = 3
 BWD_DQ, BWD_DKV = 1, 2
 BWD_WGMMA = "oryon_mha_lanes_bwd_wgmma_bf16"
+BWD_F32_HEAD = "oryon_mha_lanes_bwd_f32_head"
+# the f32 shapes whose (image, head) one block holds whole, both directions
+F32_HEAD_MAX_L, F32_HEAD_DIMS = 128, (16, 32)
 
 
 def _quantise(q: torch.Tensor, k: torch.Tensor, scale: float):
@@ -127,15 +144,23 @@ def reference_mha(qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     return o.transpose(1, 2).reshape(B, L, C)
 
 
-def kernel_entry(head_dim: int, qk_int8: bool, dtype=torch.bfloat16) -> str:
-    """The C entry point that serves this head dimension and dtype (see the
-    module docstring)."""
+def _f32_head(head_dim: int, L) -> bool:
+    """True where one block holds an f32 (image, head) whole."""
+    if L is None:
+        raise ValueError("an f32 qkv is routed by its length L too")
+    return L <= F32_HEAD_MAX_L and head_dim in F32_HEAD_DIMS
+
+
+def kernel_entry(head_dim: int, qk_int8: bool, dtype=torch.bfloat16, L=None) -> str:
+    """The C entry point that serves this head dimension, dtype and (for f32)
+    length L (see the module docstring)."""
     if head_dim not in (16, 32, 64, 128):
         raise ValueError(f"head dim {head_dim} not in (16, 32, 64, 128)")
     if dtype == torch.float32:
         if qk_int8:
             raise TypeError("qk_int8 takes a bf16 qkv")
-        return "oryon_fused_mha_lanes_f32"
+        return ("oryon_fused_mha_lanes_f32_head" if _f32_head(head_dim, L)
+                else "oryon_fused_mha_lanes_f32")
     if dtype != torch.bfloat16:
         raise TypeError(f"kernel takes a bf16 or f32 qkv, got {dtype}")
     if qk_int8:
@@ -179,7 +204,7 @@ def _launch(lib, qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
     global launches, launches_i8
     B, L, C3 = qkv.shape
     C = C3 // 3
-    fn = getattr(lib, kernel_entry(C // heads, qk_int8, qkv.dtype))
+    fn = getattr(lib, kernel_entry(C // heads, qk_int8, qkv.dtype, L))
     out = torch.empty((B, L, C), dtype=qkv.dtype, device=qkv.device)
     if qk_int8:
         absmax, codes = _i8_scratch(qkv, heads)
@@ -213,18 +238,35 @@ def _forward(qkv: torch.Tensor, kmask: torch.Tensor, heads: int, scale: float,
     if not (qkv.is_contiguous() and kmask.is_contiguous()):
         raise ValueError("qkv and kmask must be contiguous")
     # raises on a dtype or head dim without a kernel
-    kernel_entry(C // heads, qk_int8, qkv.dtype)
+    kernel_entry(C // heads, qk_int8, qkv.dtype, qkv.shape[1])
     return _launch(_lib.library(), qkv, kmask, heads, scale, qk_int8,
                    torch.cuda.current_stream(qkv.device).cuda_stream)
 
 
-def backward_entry(head_dim: int, dtype=torch.bfloat16) -> str:
-    """The C entry point of K1's backward for this head dimension and dtype
-    (either ``qk_int8``: the gradient is straight-through)."""
+def run_entry(entry: str, qkv: torch.Tensor, kmask: torch.Tensor, heads: int,
+              scale: float) -> torch.Tensor:
+    """K1's output from a named entry without int8 logits (its arguments are
+    ``oryon_fused_mha_lanes_f32``'s) on a CUDA device, e.g. the streaming f32
+    kernel at a shape the route gives to the one-block-a-head kernel.  For
+    holding and timing bodies apart; counts no launch and checks no
+    argument."""
+    B, L, C3 = qkv.shape
+    out = torch.empty((B, L, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    err = getattr(_lib.library(), entry)(
+        qkv.data_ptr(), kmask.data_ptr(), out.data_ptr(), B, L, C3 // 3, heads, float(scale),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _lib.check(err, entry)
+    return out
+
+
+def backward_entry(head_dim: int, dtype=torch.bfloat16, L=None) -> str:
+    """The C entry point of K1's backward for this head dimension, dtype and
+    (for f32) length L (either ``qk_int8``: the gradient is
+    straight-through)."""
     if head_dim not in (16, 32, 64, 128):
         raise ValueError(f"head dim {head_dim} not in (16, 32, 64, 128)")
     if dtype == torch.float32:
-        return "oryon_mha_lanes_bwd_f32"
+        return BWD_F32_HEAD if _f32_head(head_dim, L) else "oryon_mha_lanes_bwd_f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"K1's backward takes a bf16 or f32 qkv, got {dtype}")
     return BWD_WGMMA if head_dim == 64 else "oryon_mha_lanes_bwd_bf16"
@@ -252,15 +294,43 @@ def backward_stats(qkv: torch.Tensor, heads: int) -> torch.Tensor:
                        device=qkv.device)
 
 
+_counters: dict = {}   # device -> the one-block-a-head backward's counter
+
+
+def head_counter(device) -> torch.Tensor:
+    """The counter of the one-block-a-head f32 backward on this device: one
+    int32, allocated zeroed on first use; each launch that sums d kmask counts
+    its blocks on it and leaves it at 0."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:   # "cuda" is the current card
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _counters:
+        _counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _counters[device]
+
+
 def _call_backward(lib, entry: str, qkv: torch.Tensor, kmask: torch.Tensor,
                    dout: torch.Tensor, heads: int, scale: float, want_mask: bool,
                    stream: int, phases: int = BWD_DQ | BWD_DKV, stats=None):
-    """Allocate d qkv, d kmask and the scratch (row statistics unless
-    ``stats`` is given, per-(image, head) sums of dS) and call ``entry`` on
-    ``lib`` (``phases`` for the head-dim-64 entry only)."""
+    """Allocate d qkv, d kmask and the scratch and call ``entry`` on ``lib``:
+    for the one-block-a-head entry a [B * heads, L] slab of sums of dS and
+    the device's counter, only when kmask needs a gradient; for the others
+    the row statistics (unless ``stats`` is given) and the per-(image, head)
+    sums of dS (``phases`` for the head-dim-64 entry only)."""
     B, L, C3 = qkv.shape
     f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
+    if entry == BWD_F32_HEAD:
+        dkmask = slab = counter = None
+        if want_mask:
+            dkmask = torch.empty((L,), **f32)
+            slab = torch.empty((B * heads, L), **f32)
+            counter = head_counter(qkv.device)
+        ptr = [0 if t is None else t.data_ptr() for t in (slab, counter, dkmask)]
+        _lib.check(lib.oryon_mha_lanes_bwd_f32_head(
+            qkv.data_ptr(), kmask.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), *ptr, B, L,
+            C3 // 3, heads, float(scale), stream), "K1 backward")
+        return dqkv, dkmask
     if stats is None:
         stats = backward_stats(qkv, heads)
     colsum = torch.empty((B * heads, L), **f32)
@@ -279,8 +349,9 @@ def _launch_backward(lib, qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Te
     """Call the backward entry for this shape on ``lib`` and count the
     launch."""
     global launches_bwd
-    out = _call_backward(lib, backward_entry(qkv.shape[-1] // 3 // heads, qkv.dtype), qkv,
-                         kmask, dout, heads, scale, want_mask, stream)
+    out = _call_backward(lib, backward_entry(qkv.shape[-1] // 3 // heads, qkv.dtype,
+                                             qkv.shape[1]),
+                         qkv, kmask, dout, heads, scale, want_mask, stream)
     launches_bwd += 1
     return out
 
@@ -289,8 +360,9 @@ def run_backward_entry(entry: str, qkv: torch.Tensor, kmask: torch.Tensor,
                        dout: torch.Tensor, heads: int, scale: float, want_mask: bool,
                        phases: int = BWD_DQ | BWD_DKV, stats=None):
     """(d qkv, d kmask or None) from a named backward entry on a CUDA
-    device, e.g. the ``mma.sync`` body at head dimension 64, which no route
-    takes, or some ``phases`` of the head-dim-64 entry.  ``stats`` (from
+    device, e.g. the ``mma.sync`` body at head dimension 64 or the
+    two-kernel f32 body at the small tower's shape, which no route takes,
+    or some ``phases`` of the head-dim-64 entry.  ``stats`` (from
     ``backward_stats``) is the caller's scratch of row statistics: the
     key-tile kernel alone (``BWD_DKV``) reads what an earlier ``BWD_DQ``
     call wrote there.  For holding and timing bodies and kernels apart;
@@ -313,7 +385,7 @@ def _backward(qkv: torch.Tensor, kmask: torch.Tensor, dout: torch.Tensor, heads:
     if not (qkv.is_contiguous() and kmask.is_contiguous()):
         raise ValueError("qkv and kmask must be contiguous")
     # raises on a dtype or head dim without a kernel
-    backward_entry(qkv.shape[-1] // 3 // heads, qkv.dtype)
+    backward_entry(qkv.shape[-1] // 3 // heads, qkv.dtype, qkv.shape[1])
     return _launch_backward(_lib.library(), qkv, kmask, dout.contiguous(), heads, scale,
                             want_mask, torch.cuda.current_stream(qkv.device).cuda_stream)
 

@@ -204,6 +204,78 @@ def k1_backward_model(qkv, kmask, dout, heads: int, scale: float, tile: int = 64
     return dqkv.to(dt), ds.sum((0, 1, 2))
 
 
+def _heads(t, heads: int):
+    """[B, L, heads * hd] -> [B, heads, L, hd]."""
+    B, L, C = t.shape
+    return t.reshape(B, L, heads, C // heads).transpose(1, 2)
+
+
+def k1_f32_head_model(qkv, kmask, heads: int, scale: float):
+    """Pure-PyTorch model of the arithmetic of the one-block-a-head f32
+    kernel (``oryon_tpu_torch/csrc/attn_f32_head.cuh``) on packed [B, L, 3C]
+    f32 tensors: per (image, head) S = (q k^T) * scale + kmask, the exact
+    maximum of each row over all keys, E = exp(S - max), the row sum l of E,
+    and O = (E V) / l, the division last."""
+    B, L, C3 = qkv.shape
+    q, k, v = (_heads(t, heads) for t in qkv.split(C3 // 3, -1))
+    s = (q @ k.mT) * scale + kmask
+    e = (s - s.amax(-1, keepdim=True)).exp()
+    o = (e @ v) / e.sum(-1, keepdim=True)
+    return o.transpose(1, 2).reshape(B, L, C3 // 3)
+
+
+def last_block_sum(slab, order):
+    """Model of the backward's d kmask reduction over a [R, L] slab: blocks
+    finish in ``order``; each writes its row and takes the next count on a
+    counter that starts at 0; the block that takes count R - 1 sums the rows
+    in index order and puts the counter back to 0.  Returns (the sum, the
+    counter after the launch)."""
+    import torch
+
+    R, L = slab.shape
+    written = torch.full_like(slab, float("nan"))
+    counter, total = 0, None
+    for block in order:
+        written[block] = slab[block]
+        taken, counter = counter, counter + 1
+        if taken == R - 1:
+            total = torch.zeros(L, dtype=slab.dtype)
+            for r in range(R):
+                total = total + written[r]
+            counter = 0
+    return total, counter
+
+
+def k1_bwd_f32_head_model(qkv, kmask, dout, heads: int, scale: float, order=None):
+    """Pure-PyTorch model of the arithmetic of the one-block-a-head f32
+    backward (``oryon_tpu_torch/csrc/attn_bwd_f32_head.cuh``) on packed
+    [B, L, 3C] f32 tensors: (d qkv, the [B * heads, L] slab, d kmask).
+
+    Per (image, head): S = (q k^T) * scale + kmask; P = exp(S - max) / sum
+    with the exact row max and sum; dP = dO v^T; D = rowsum(P * dP); dS =
+    P (dP - D); the slab row holds each key's sum of dS over the query rows;
+    the five products' others: dV = P^T dO, dQ = (dS * scale) K, dK = (dS *
+    scale)^T Q.  d kmask is ``last_block_sum`` of the slab, the blocks
+    finishing in ``order`` (index order by default)."""
+    import torch
+
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    q, k, v = (_heads(t, heads) for t in qkv.split(C, -1))
+    do = _heads(dout, heads)
+    s = (q @ k.mT) * scale + kmask
+    e = (s - s.amax(-1, keepdim=True)).exp()
+    p = e / e.sum(-1, keepdim=True)
+    dp = do @ v.mT
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    slab = ds.sum(2).reshape(B * heads, L)
+    dsc = ds * scale
+    grads = (dsc @ k, dsc.mT @ q, p.mT @ do)
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B, L, C) for t in grads], -1)
+    total, _ = last_block_sum(slab, range(B * heads) if order is None else order)
+    return dqkv, slab, total
+
+
 def window_tile_model(q, k, v, bias, heads: int, scale: float, bias_bf16: bool):
     """Pure-PyTorch model of the arithmetic of the wgmma window-attention
     kernel (``oryon_tpu_torch/csrc/swin_wgmma.cuh``) on q, k, v [Bw, N, C]

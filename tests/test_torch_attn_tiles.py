@@ -267,8 +267,10 @@ def test_k1_wrapper_chooses_the_kernel_by_shape(hd, qk_int8, entry):
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_k1_f32_mode_chooses_the_cuda_core_kernel(hd):
-    """An f32 qkv goes to the CUDA-core kernel at every head dim, counted on
-    K1's counter; with int8 logits it is refused (bf16 only, as in JAX)."""
+    """An f32 qkv goes to a CUDA-core kernel at every head dim, counted on
+    K1's counter: at L = 8 the one-block-a-head kernel at head dims 16 and
+    32, the streaming kernel at 64 and 128; with int8 logits it is refused
+    (bf16 only, as in JAX)."""
     from oryon_tpu_torch.ops.cuda import _lib, mha_lanes
 
     stub = StubLib()
@@ -276,7 +278,7 @@ def test_k1_f32_mode_chooses_the_cuda_core_kernel(hd):
     before = mha_lanes.launches
     out = mha_lanes._launch(stub, qkv, torch.zeros(8), 2, hd ** -0.5, False, 0)
     assert out.shape == (1, 8, 2 * hd) and out.dtype == torch.float32
-    entry = "oryon_fused_mha_lanes_f32"
+    entry = "oryon_fused_mha_lanes_f32" + ("_head" if hd <= 32 else "")
     assert stub.calls == [(entry, len(_lib.SIGNATURES[entry]))]
     assert mha_lanes.launches == before + 1
     with pytest.raises(TypeError):

@@ -730,3 +730,87 @@ def test_tiny_train_step_on_the_card(cuda, train_towers):
     w0 = random_init_(tiny_oryon(), torch.Generator().manual_seed(0)).fusion.conv1.weight
     step = (w_cpu - w0.detach()).abs().max().item()
     assert (w_gpu - w_cpu).abs().max().item() <= 1e-4 * step + 1e-7
+
+
+# K1's f32 one-block-a-head kernels: B, L, heads, head dim.  The small and tiny
+# towers' path shapes, one key, the longest L a block holds, one more (the
+# route's streaming and two-kernel bodies), head dim 32.
+K1_F32_HEAD_CASES = [(4, 65, 4, 16), (16, 65, 4, 16), (64, 65, 4, 16), (16, 17, 4, 16),
+                     (2, 1, 4, 16), (2, 128, 4, 16), (2, 129, 4, 16), (3, 128, 2, 32),
+                     (1, 100, 1, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,hd", K1_F32_HEAD_CASES)
+def test_k1_f32_head_kernels_match_plain_and_old_bodies(cuda, B, L, H, hd):
+    """K1's f32 forward and backward on the route (the one-block-a-head
+    kernels where L <= 128) against their plain versions and against the
+    bodies they replaced (the streaming forward, the two-kernel backward):
+    forward within 1e-5, d q, d k, d v and d kmask within 1e-5 of the
+    largest value (at least 1); two launches bitwise equal; the backward's
+    counter back at 0."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    qkv, m, dout = _k1_bwd_inputs(cuda, B, L, H, hd, L - L // 5, False, torch.float32)
+    scale = hd ** -0.5
+    got = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, scale)
+    again = mha_lanes.fused_mha_lanes_qkv(qkv, m, H, scale)
+    old = mha_lanes.run_entry("oryon_fused_mha_lanes_f32", qkv, m, H, scale)
+    ref = mha_lanes.reference_mha(qkv, m, H, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert (got - ref).abs().max().item() < 1e-5
+    assert (got - old).abs().max().item() < 1e-5
+    dq, dm = mha_lanes._backward(qkv, m, dout, H, scale, True)
+    dq2, dm2 = mha_lanes._backward(qkv, m, dout, H, scale, True)
+    old_q, old_m = mha_lanes.run_backward_entry("oryon_mha_lanes_bwd_f32", qkv, m, dout, H,
+                                                scale, True)
+    ref_q, ref_m = mha_lanes.reference_mha_backward(qkv, m, dout, H, scale, True)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(dm, dm2)
+    for i, name in enumerate(("d q", "d k", "d v")):
+        part = slice(i * H * hd, (i + 1) * H * hd)
+        _assert_bwd_close(dq[..., part], ref_q[..., part], torch.float32, name)
+        _assert_bwd_close(dq[..., part], old_q[..., part], torch.float32, f"{name} vs old")
+    _assert_bwd_close(dm, ref_m, torch.float32, "d kmask")
+    _assert_bwd_close(dm, old_m, torch.float32, "d kmask vs old")
+    assert int(mha_lanes.head_counter(cuda)) == 0
+
+
+@pytest.mark.cuda
+def test_k1_f32_head_backward_leaves_its_counter_at_zero(cuda):
+    """The one-block-a-head backward's device counter is 0 after one launch
+    and after many in a row on one stream, with and without d kmask; every
+    launch's d kmask bitwise the same; one launch counted a call."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    qkv, m, dout = _k1_bwd_inputs(cuda, 64, 65, 4, 16, 60, False, torch.float32)
+    before = mha_lanes.launches_bwd
+    first = mha_lanes._backward(qkv, m, dout, 4, 0.25, True)
+    torch.cuda.synchronize()
+    assert int(mha_lanes.head_counter(cuda)) == 0
+    runs = [mha_lanes._backward(qkv, m, dout, 4, 0.25, w) for w in [True] * 40 + [False] * 3]
+    torch.cuda.synchronize()
+    assert int(mha_lanes.head_counter(cuda)) == 0
+    assert mha_lanes.launches_bwd == before + 44
+    assert all(torch.equal(dq, first[0]) for dq, _ in runs)
+    assert all(torch.equal(dm, first[1]) for _, dm in runs[:40])
+    assert all(dm is None for _, dm in runs[40:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [65, 128, 17])
+def test_k1_f32_head_forward_gives_the_same_bits_whatever_the_row_split(cuda, L):
+    """The forward splits a head's query rows over several blocks when B *
+    heads blocks would leave SMs idle: 4 images alone (split at L = 65 and
+    128) give bitwise what the same 4 images give inside a batch of 64 (one
+    block a head)."""
+    from oryon_tpu_torch.ops.cuda import mha_lanes
+
+    rs = np.random.RandomState(6)
+    qkv = torch.from_numpy(rs.randn(64, L, 192).astype(np.float32)).to(cuda)
+    m = torch.where(torch.arange(L) < L - L // 5, 0.0, -1e9).to(cuda)
+    alone = mha_lanes.fused_mha_lanes_qkv(qkv[:4].contiguous(), m, 4, 0.25)
+    batch = mha_lanes.fused_mha_lanes_qkv(qkv, m, 4, 0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batch[:4])

@@ -114,13 +114,16 @@ def test_log2_model_matches_plain_backward(L):
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_backward_wrapper_chooses_the_entry(hd, dtype, entry, want_mask):
     """Every head dim of either dtype goes to its dtype's entry (head dim 64
-    in bf16 to the wgmma entry, with both phases) with the arguments its
-    signature lists; d kmask is allocated only when asked for; one launch is
-    counted on ``launches_bwd`` (K1's own count unchanged)."""
+    in bf16 to the wgmma entry, with both phases; f32 at head dims 16 and 32,
+    L = 8, to the one-block-a-head entry) with the arguments its signature
+    lists; d kmask is allocated only when asked for; one launch is counted on
+    ``launches_bwd`` (K1's own count unchanged)."""
     from oryon_tpu_torch.ops.cuda import _lib, mha_lanes
 
     if hd == 64 and dtype == torch.bfloat16:
         entry = "oryon_mha_lanes_bwd_wgmma_bf16"
+    if hd <= 32 and dtype == torch.float32:
+        entry = mha_lanes.BWD_F32_HEAD
     stub = StubLib()
     qkv = torch.zeros(1, 8, 3 * 2 * hd, dtype=dtype)
     before = (mha_lanes.launches, mha_lanes.launches_bwd)
@@ -130,7 +133,7 @@ def test_backward_wrapper_chooses_the_entry(hd, dtype, entry, want_mask):
     assert dqkv.shape == qkv.shape and dqkv.dtype == dtype
     assert (dm is not None) == want_mask and (dm is None or dm.shape == (8,))
     assert stub.calls == [(entry, len(_lib.SIGNATURES[entry]))]
-    assert mha_lanes.backward_entry(hd, dtype) == entry
+    assert mha_lanes.backward_entry(hd, dtype, 8) == entry
     assert (mha_lanes.launches, mha_lanes.launches_bwd) == (before[0], before[1] + 1)
     if entry == mha_lanes.BWD_WGMMA:
         assert stub.args[0][-2] == mha_lanes.BWD_DQ | mha_lanes.BWD_DKV

@@ -45,6 +45,7 @@ from oryon_tpu_torch.parallel.mesh import place_params, serving_mesh
 from oryon_tpu_torch.parallel.tp import shard_params_tp
 from oryon_tpu_torch.pipeline import (PipelineConfig, build_pointdsc_solver, make_run_fn,
                                       pointdsc_weights_available, split_over_data)
+from oryon_tpu_torch.utils.profiling import count, span
 
 
 def _load_array(path: str) -> np.ndarray:
@@ -239,6 +240,7 @@ class OryonPredictor:
 
     def _text_emb(self, prompt: str) -> torch.Tensor:
         emb = self._text_cache.get(prompt)
+        count("text_hit" if emb is not None else "text_miss")
         if emb is None:
             ids = torch.as_tensor(np.asarray(self._tokenize(prompt))[None],
                                   device=self.device)
@@ -288,10 +290,14 @@ class OryonPredictor:
 
     def _build_batch(self, chunk: Sequence[Dict]):
         B = len(chunk)
-        text = torch.stack([self._text_emb(r["prompt"]) for r in chunk])
+        with span("engine.text"):
+            text = torch.stack([self._text_emb(r["prompt"]) for r in chunk])
+        with span("engine.views"):
+            anchor = self._view([r["anchor"] for r in chunk])
+            query = self._view([r["query"] for r in chunk])
         batch = PairBatch(
-            anchor=self._view([r["anchor"] for r in chunk]),
-            query=self._view([r["query"] for r in chunk]),
+            anchor=anchor,
+            query=query,
             prompt_ids=None,   # text_emb short-circuits the text tower
             corrs=torch.zeros((B, self._max_corrs, 4), dtype=torch.int64,
                               device=self.device),
@@ -308,28 +314,34 @@ class OryonPredictor:
                 stage_events: Optional[list] = None) -> List[Dict]:
         """One result per request; requests beyond the engine batch run in
         chunks, and a short tail is padded with its first request.
-        ``stage_events`` (a list) collects CUDA events at stage boundaries."""
+        ``stage_events`` (a list) collects CUDA events at stage boundaries.
+        Each chunk is one ``engine.request`` span (``utils.profiling``), with
+        ``engine.text``, ``engine.views``, the pipeline's spans and
+        ``engine.fetch`` inside, and counts its ``padded_pairs``."""
         results: List[Dict] = []
         for i in range(0, len(requests), self.B):
-            chunk = requests[i: i + self.B]
-            n_real = len(chunk)
-            chunk = chunk + [chunk[0]] * (self.B - n_real)
-            batch, text_emb = self._build_batch(chunk)
-            out = self._run(batch, text_emb, generator=self._generator,
-                            stage_events=stage_events)
-            packed = out.packed.cpu().numpy()   # one fetch: poses + scalars
-            if return_masks:
-                masks = (out.mask_a.cpu().numpy(), out.mask_q.cpu().numpy())
-            for b in range(n_real):
-                res = {
-                    "pose": packed[b, :16].reshape(4, 4).tolist(),
-                    "n_corrs": int(packed[b, 32]),
-                    "detection_valid": bool(packed[b, 33] > 0),
-                    "prompt": chunk[b]["prompt"],
-                }
-                if return_masks:
-                    res["mask_a"], res["mask_q"] = masks[0][b], masks[1][b]
-                results.append(res)
+            with span("engine.request"):
+                chunk = requests[i: i + self.B]
+                n_real = len(chunk)
+                count("padded_pairs", self.B - n_real)
+                chunk = chunk + [chunk[0]] * (self.B - n_real)
+                batch, text_emb = self._build_batch(chunk)
+                out = self._run(batch, text_emb, generator=self._generator,
+                                stage_events=stage_events)
+                with span("engine.fetch"):
+                    packed = out.packed.cpu().numpy()   # one fetch: poses + scalars
+                    if return_masks:
+                        masks = (out.mask_a.cpu().numpy(), out.mask_q.cpu().numpy())
+                for b in range(n_real):
+                    res = {
+                        "pose": packed[b, :16].reshape(4, 4).tolist(),
+                        "n_corrs": int(packed[b, 32]),
+                        "detection_valid": bool(packed[b, 33] > 0),
+                        "prompt": chunk[b]["prompt"],
+                    }
+                    if return_masks:
+                        res["mask_a"], res["mask_q"] = masks[0][b], masks[1][b]
+                    results.append(res)
         return results
 
     def predict_pair(self, anchor: Dict, query: Dict, prompt: str, **kw) -> Dict:

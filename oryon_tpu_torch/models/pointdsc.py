@@ -27,6 +27,7 @@ from oryon_tpu_torch.geometry.kabsch import (_take, weighted_kabsch,
 from oryon_tpu_torch.geometry.pcd import sq_dist_matrix, transform_pcd, unit
 from oryon_tpu_torch.models.layers import Dense
 from oryon_tpu_torch.ops.sampling import top_k
+from oryon_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,29 +206,32 @@ class PointDSC(nn.Module):
         [B, N, C]; BatchNorm then runs on each problem's statistics."""
         c = self.cfg
         N = src.shape[1]
-        src, tgt = src.float(), tgt.float()
-        v = valid.float()
-        corr_pos = torch.cat([src, tgt], dim=-1)
-        vsum = torch.clamp(v.sum(-1, keepdim=True), min=1.0)
-        corr_pos = corr_pos - (torch.sum(corr_pos * v[..., None], dim=1) / vsum)[:, None]
-        src_dist = torch.sqrt(sq_dist_matrix(src, src) + 1e-12)
-        tgt_dist = torch.sqrt(sq_dist_matrix(tgt, tgt) + 1e-12)
-        compat = torch.clamp(1.0 - (src_dist - tgt_dist) ** 2 / c.sigma_d ** 2, min=0.0)
-        compat = compat * v[:, :, None] * v[:, None, :]
+        with span("pointdsc.encoder"):
+            src, tgt = src.float(), tgt.float()
+            v = valid.float()
+            corr_pos = torch.cat([src, tgt], dim=-1)
+            vsum = torch.clamp(v.sum(-1, keepdim=True), min=1.0)
+            corr_pos = corr_pos - (torch.sum(corr_pos * v[..., None], dim=1) / vsum)[:, None]
+            src_dist = torch.sqrt(sq_dist_matrix(src, src) + 1e-12)
+            tgt_dist = torch.sqrt(sq_dist_matrix(tgt, tgt) + 1e-12)
+            compat = torch.clamp(1.0 - (src_dist - tgt_dist) ** 2 / c.sigma_d ** 2, min=0.0)
+            compat = compat * v[:, :, None] * v[:, None, :]
 
-        feats = self.encoder(corr_pos, compat, train)
-        fn = unit(feats)
-        h = F.relu(self.cls2(F.relu(self.cls1(feats))))
-        confidence = self.cls3(h)[..., 0]
+            feats = self.encoder(corr_pos, compat, train)
+            fn = unit(feats)
+            h = F.relu(self.cls2(F.relu(self.cls1(feats))))
+            confidence = self.cls3(h)[..., 0]
         if train:
             return confidence, fn
-        confidence = torch.where(v > 0, confidence,
-                                 torch.full_like(confidence, float("-inf")))
-        seeds = pick_seeds(src_dist, confidence, c.nms_radius, max(int(N * c.ratio), 1))
-        T, _ = seed_transforms(fn, src, tgt, v, seeds, self.sigma[0], c)
-        T = post_refinement(T, src, tgt, v, c)
-        warped = transform_pcd(src, T[:, :3, :3], T[:, :3, 3])
-        labels = (torch.linalg.norm(warped - tgt, dim=-1) < c.inlier_threshold).float() * v
+        with span("pointdsc.seeds"):
+            confidence = torch.where(v > 0, confidence,
+                                     torch.full_like(confidence, float("-inf")))
+            seeds = pick_seeds(src_dist, confidence, c.nms_radius, max(int(N * c.ratio), 1))
+            T, _ = seed_transforms(fn, src, tgt, v, seeds, self.sigma[0], c)
+        with span("pointdsc.refine"):
+            T = post_refinement(T, src, tgt, v, c)
+            warped = transform_pcd(src, T[:, :3, :3], T[:, :3, 3])
+            labels = (torch.linalg.norm(warped - tgt, dim=-1) < c.inlier_threshold).float() * v
         return T, labels, confidence
 
 

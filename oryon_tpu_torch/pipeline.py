@@ -45,6 +45,7 @@ from oryon_tpu_torch.ops.resize import resize_mask_nearest
 from oryon_tpu_torch.ops.sampling import flat_to_yx, masked_select
 from oryon_tpu_torch.parallel.mesh import gather_outputs, take_rows
 from oryon_tpu_torch.parallel.tp import copy_module
+from oryon_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +146,14 @@ def _icp_refine_pose(noise_a, noise_q, T, n_corrs, mask_a, mask_q, A: PairView,
                      Q: PairView, feat_hw, cfg: PipelineConfig) -> torch.Tensor:
     """Dense trimmed-ICP refinement of the solver poses on the masked depth
     clouds; pairs without a usable solver start (< 4 corrs) keep T."""
-    ca, va = _lift_mask_cloud(noise_a, mask_a, A.orig_depth, A.camera, A.size,
-                              feat_hw, cfg.icp_points)
-    cq, vq = _lift_mask_cloud(noise_q, mask_q, Q.orig_depth, Q.camera, Q.size,
-                              feat_hw, cfg.icp_points)
-    T_ref = masked_icp(ca, va, cq, vq, T, iters=cfg.icp_iters, trim=cfg.icp_trim)
-    return torch.where((n_corrs >= 4)[:, None, None], T_ref, T)
+    with span("icp.clouds"):
+        ca, va = _lift_mask_cloud(noise_a, mask_a, A.orig_depth, A.camera, A.size,
+                                  feat_hw, cfg.icp_points)
+        cq, vq = _lift_mask_cloud(noise_q, mask_q, Q.orig_depth, Q.camera, Q.size,
+                                  feat_hw, cfg.icp_points)
+    with span("icp.iterate"):
+        T_ref = masked_icp(ca, va, cq, vq, T, iters=cfg.icp_iters, trim=cfg.icp_trim)
+        return torch.where((n_corrs >= 4)[:, None, None], T_ref, T)
 
 
 def _featmap_coords(corrs: torch.Tensor, in_hw, feat_hw) -> torch.Tensor:
@@ -256,7 +259,9 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
     with ``rows`` = (global batch size, row indices) the batch is those rows
     of a global batch and the noise is drawn for the global one and cut.
     ``stage_events``, a list, collects (stage name, CUDA event) pairs at the
-    stage boundaries for timing on the card."""
+    stage boundaries for timing on the card: the device side of the host
+    spans ``pipeline.forward``, ``.match``, ``.solve``, ``.icp`` and ``.pack``
+    (``utils.profiling.span``), which hold the stages' host work."""
     if cfg.solver == "pointdsc" and pointdsc is None:
         raise ValueError("pointdsc solver needs a PointDSC module")
     if cfg.solver not in ("pointdsc", "ransac"):
@@ -276,68 +281,74 @@ def make_run_fn(model: OryonModel, cfg: PipelineConfig,
 
         A, Q = batch.anchor, batch.query
         mark("start")
-        out = model(A.rgb, Q.rgb, batch.prompt_ids, text_emb)
+        with span("pipeline.forward"):
+            out = model(A.rgb, Q.rgb, batch.prompt_ids, text_emb)
         mark("forward")
-        B, FH, FW, _ = out.featmap_a.shape
-        if noise is None and rows is None:
-            noise = draw_noise(generator, cfg, B, (FH, FW), out.featmap_a.device)
-        elif noise is None:
-            # ``batch`` is rows ``rows[1]`` of a global batch of ``rows[0]``:
-            # the global batch's draws, cut to them
-            noise = take_rows(draw_noise(generator, cfg, rows[0], (FH, FW),
-                                         out.featmap_a.device), rows[1], rows[0])
-        pred_mask_a = (torch.sigmoid(out.mask_a) > cfg.mask_threshold).to(torch.uint8)
-        pred_mask_q = (torch.sigmoid(out.mask_q) > cfg.mask_threshold).to(torch.uint8)
-        gt_a = resize_mask_nearest(A.mask, (FH, FW))
-        gt_q = resize_mask_nearest(Q.mask, (FH, FW))
-        if cfg.mask_source == "predicted":
-            match_a, match_q = pred_mask_a, pred_mask_q
-        else:
-            match_a, match_q = gt_a, gt_q
-        iou_a = mask_iou(gt_a, pred_mask_a)
-        iou_q = mask_iou(gt_q, pred_mask_q)
-        det_valid = (match_a.sum(dim=(1, 2)) > 0) & (match_q.sum(dim=(1, 2)) > 0)
+        with span("pipeline.match"):
+            B, FH, FW, _ = out.featmap_a.shape
+            if noise is None and rows is None:
+                noise = draw_noise(generator, cfg, B, (FH, FW), out.featmap_a.device)
+            elif noise is None:
+                # ``batch`` is rows ``rows[1]`` of a global batch of ``rows[0]``:
+                # the global batch's draws, cut to them
+                noise = take_rows(draw_noise(generator, cfg, rows[0], (FH, FW),
+                                             out.featmap_a.device), rows[1], rows[0])
+            pred_mask_a = (torch.sigmoid(out.mask_a) > cfg.mask_threshold).to(torch.uint8)
+            pred_mask_q = (torch.sigmoid(out.mask_q) > cfg.mask_threshold).to(torch.uint8)
+            gt_a = resize_mask_nearest(A.mask, (FH, FW))
+            gt_q = resize_mask_nearest(Q.mask, (FH, FW))
+            if cfg.mask_source == "predicted":
+                match_a, match_q = pred_mask_a, pred_mask_q
+            else:
+                match_a, match_q = gt_a, gt_q
+            iou_a = mask_iou(gt_a, pred_mask_a)
+            iou_q = mask_iou(gt_q, pred_mask_q)
+            det_valid = (match_a.sum(dim=(1, 2)) > 0) & (match_q.sum(dim=(1, 2)) > 0)
 
-        if cfg.debug_valid:
-            corrs_yx, corr_valid = _gt_featmap_corrs(batch, (FH, FW), cfg.match.max_corrs)
-        else:
-            corr = nn_correspondences(out.featmap_a, out.featmap_q, match_a, match_q,
-                                      noise.match_src, noise.match_out, cfg.match)
-            corrs_yx, corr_valid = corr.yx, corr.valid
+            if cfg.debug_valid:
+                corrs_yx, corr_valid = _gt_featmap_corrs(batch, (FH, FW), cfg.match.max_corrs)
+            else:
+                corr = nn_correspondences(out.featmap_a, out.featmap_q, match_a, match_q,
+                                          noise.match_src, noise.match_out, cfg.match)
+                corrs_yx, corr_valid = corr.yx, corr.valid
         mark("match")
-        pa, pq, ok = _lift_corrs(corrs_yx, corr_valid, A.orig_depth, Q.orig_depth,
-                                 A.camera, Q.camera, A.size, Q.size, (FH, FW))
-        w = ok.float()
-        T_rel, n_corrs = _pose_from_corrs(noise.ransac, pa, pq, w, cfg, pointdsc)
+        with span("pipeline.solve"):
+            with span("solve.lift"):
+                pa, pq, ok = _lift_corrs(corrs_yx, corr_valid, A.orig_depth, Q.orig_depth,
+                                         A.camera, Q.camera, A.size, Q.size, (FH, FW))
+                w = ok.float()
+            T_rel, n_corrs = _pose_from_corrs(noise.ransac, pa, pq, w, cfg, pointdsc)
         mark("solve")
         if cfg.icp_refine:
-            T_rel = _icp_refine_pose(noise.icp_a, noise.icp_q, T_rel, n_corrs,
-                                     match_a, match_q, A, Q, (FH, FW), cfg)
+            with span("pipeline.icp"):
+                T_rel = _icp_refine_pose(noise.icp_a, noise.icp_q, T_rel, n_corrs,
+                                         match_a, match_q, A, Q, (FH, FW), cfg)
         mark("icp")
 
-        # learning-signal metrics: FMR at the GT correspondence pixels and
-        # the geometric inlier rate of the predicted matches under GT pose
-        sig = _featmap_coords(batch.corrs, A.rgb.shape[1:3], (FH, FW))
-        bidx = torch.arange(B, device=sig.device)[:, None]
-        fmr_v, feat_ratio = fmr(out.featmap_a[bidx, sig[..., 0], sig[..., 1]],
-                                out.featmap_q[bidx, sig[..., 2], sig[..., 3]],
-                                cfg.fmr_dist_th, cfg.fmr_inlier_th, w=batch.corr_valid)
-        rel_gt = (batch.rel_pose if batch.rel_pose is not None
-                  else torch.eye(4, device=w.device).expand(B, 4, 4))
-        p2 = pa @ rel_gt[:, :3, :3].transpose(1, 2) + rel_gt[:, None, :3, 3]
-        dist = torch.linalg.norm(p2 - pq, dim=-1)
-        inlier_rate = torch.sum((dist < cfg.signal_inlier_m) * w, dim=-1) / torch.clamp(
-            w.sum(-1), min=1.0)
+        with span("pipeline.pack"):
+            # learning-signal metrics: FMR at the GT correspondence pixels and
+            # the geometric inlier rate of the predicted matches under GT pose
+            sig = _featmap_coords(batch.corrs, A.rgb.shape[1:3], (FH, FW))
+            bidx = torch.arange(B, device=sig.device)[:, None]
+            fmr_v, feat_ratio = fmr(out.featmap_a[bidx, sig[..., 0], sig[..., 1]],
+                                    out.featmap_q[bidx, sig[..., 2], sig[..., 3]],
+                                    cfg.fmr_dist_th, cfg.fmr_inlier_th, w=batch.corr_valid)
+            rel_gt = (batch.rel_pose if batch.rel_pose is not None
+                      else torch.eye(4, device=w.device).expand(B, 4, 4))
+            p2 = pa @ rel_gt[:, :3, :3].transpose(1, 2) + rel_gt[:, None, :3, 3]
+            dist = torch.linalg.norm(p2 - pq, dim=-1)
+            inlier_rate = torch.sum((dist < cfg.signal_inlier_m) * w, dim=-1) / torch.clamp(
+                w.sum(-1), min=1.0)
 
-        # pairs without correspondences report identity
-        eye = torch.eye(4, device=T_rel.device).expand_as(T_rel)
-        T_rel = torch.where((n_corrs >= 4)[:, None, None], T_rel, eye)
-        pred_q = T_rel @ A.pose.float()
-        packed = torch.cat([
-            T_rel.reshape(B, 16), pred_q.reshape(B, 16),
-            n_corrs[:, None], det_valid[:, None].float(),
-            iou_a[:, None].float(), iou_q[:, None].float(), fmr_v[:, None],
-            inlier_rate[:, None], feat_ratio[:, None]], dim=1)
+            # pairs without correspondences report identity
+            eye = torch.eye(4, device=T_rel.device).expand_as(T_rel)
+            T_rel = torch.where((n_corrs >= 4)[:, None, None], T_rel, eye)
+            pred_q = T_rel @ A.pose.float()
+            packed = torch.cat([
+                T_rel.reshape(B, 16), pred_q.reshape(B, 16),
+                n_corrs[:, None], det_valid[:, None].float(),
+                iou_a[:, None].float(), iou_q[:, None].float(), fmr_v[:, None],
+                inlier_rate[:, None], feat_ratio[:, None]], dim=1)
         mark("end")
         return PipelineOutputs(
             pred_rel_pose=T_rel, pred_pose=pred_q, n_corrs=n_corrs,

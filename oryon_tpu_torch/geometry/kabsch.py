@@ -5,14 +5,21 @@ dimensions (the JAX package ``vmap``s over pairs).  All pose math runs in
 float32 with full-precision matmuls: the serving engine turns TF32 off, the
 PyTorch counterpart of the JAX package's ``fp32_matmul`` policy.
 Randomness enters as tensors (``ransac_kabsch``'s uniforms), never drawn here.
+
+``masked_icp`` on the card replays its refinement loop from CUDA graphs
+captured once a shape (``_IcpGraphs``); on the CPU, under a capture or with
+gradients it runs the same steps eagerly.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from oryon_tpu_torch.geometry.pcd import sq_dist_matrix, transform_pcd
+from oryon_tpu_torch.utils.profiling import count, span
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:
@@ -53,6 +60,12 @@ def weighted_kabsch(A: torch.Tensor, B: torch.Tensor,
     """
     H, cA, cB = _centered_cov(A, B, weights, eps)
     U, _, Vt = torch.linalg.svd(H, full_matrices=False)
+    return _rigid_from_svd(H, U, Vt, cA, cB)
+
+
+def _rigid_from_svd(H, U, Vt, cA, cB) -> torch.Tensor:
+    """``weighted_kabsch``'s transform from the SVD U, Vt of its covariance
+    H and the centroids cA, cB."""
     V = Vt.transpose(-1, -2)
     det = _det3(V @ U.transpose(-1, -2))
     D = torch.zeros_like(H)
@@ -149,6 +162,201 @@ def ransac_kabsch(A: torch.Tensor, B: torch.Tensor, valid: torch.Tensor,
     return T, counts[rows, best]
 
 
+class _IcpClouds(NamedTuple):
+    """``masked_icp``'s clouds with their masks, counts and trim ranks."""
+    src: torch.Tensor       # [P, N, 3]
+    srcv: torch.Tensor      # [P, N] bool
+    dst: torch.Tensor       # [P, M, 3]
+    dstv: torch.Tensor      # [P, M] bool
+    n_src: torch.Tensor     # [P]
+    n_dst: torch.Tensor
+    k_src: torch.Tensor     # [P] points kept of each direction
+    k_dst: torch.Tensor
+
+
+def _icp_clouds(src, src_valid, dst, dst_valid, trim: float) -> _IcpClouds:
+    N = src.shape[1]
+    M = dst.shape[1]
+    srcv = src_valid.bool()
+    dstv = dst_valid.bool()
+    n_src = srcv.sum(-1)
+    n_dst = dstv.sum(-1)
+    k_src = torch.clamp((trim * n_src).int(), 4, N).long()
+    k_dst = torch.clamp((trim * n_dst).int(), 4, M).long()
+    return _IcpClouds(src, srcv, dst, dstv, n_src, n_dst, k_src, k_dst)
+
+
+def _icp_match(c: _IcpClouds, T):
+    """Both ways' nearest neighbours under T, trimmed: the stacked pairs
+    (A, B) with their weights, and T's symmetric trimmed RMS."""
+    inf = float("inf")
+    s = transform_pcd(c.src, T[:, :3, :3], T[:, :3, 3])
+    d2 = sq_dist_matrix(s, c.dst)
+    d2 = torch.where(c.dstv[:, None, :], d2, inf)
+    d2 = torch.where(c.srcv[:, :, None], d2, inf)
+    d2f, nn_f = torch.min(d2, dim=-1)
+    df = torch.where(c.srcv, torch.sqrt(d2f), inf)
+    thr_f = torch.sort(df, dim=-1).values.gather(
+        1, torch.clamp(c.k_src - 1, min=0)[:, None])
+    wf = (c.srcv & (df <= thr_f) & torch.isfinite(df)).float()
+    d2b, nn_b = torch.min(d2, dim=1)
+    db = torch.where(c.dstv, torch.sqrt(d2b), inf)
+    thr_b = torch.sort(db, dim=-1).values.gather(
+        1, torch.clamp(c.k_dst - 1, min=0)[:, None])
+    wb = (c.dstv & (db <= thr_b) & torch.isfinite(db)).float()
+    wsum = wf.sum(-1) + wb.sum(-1)
+    sq = (torch.where(wf > 0, df * df, 0.0).sum(-1)
+          + torch.where(wb > 0, db * db, 0.0).sum(-1))
+    err = torch.sqrt(sq / torch.clamp(wsum, min=1.0))
+    A = torch.cat([c.src, _take(c.src, nn_b)], dim=1)
+    B = torch.cat([_take(c.dst, nn_f), c.dst], dim=1)
+    return A, B, torch.cat([wf, wb], dim=1), err
+
+
+def _icp_score_and_cov(c: _IcpClouds, T_cur, T_best, e_best):
+    """One trip up to the refit's SVD: T_cur scored against the best so far,
+    and the covariance of its matches.  Returns (T_best, e_best, ok, H, cA,
+    cB); ``ok`` marks the pairs with 4 or more weighted matches."""
+    A, B, w, err = _icp_match(c, T_cur)
+    better = err < e_best
+    T_best = torch.where(better[:, None, None], T_cur, T_best)
+    e_best = torch.where(better, err, e_best)
+    ok = torch.sum(w, dim=-1) >= 4
+    H, cA, cB = _centered_cov(A, B, w, 1e-6)
+    return T_best, e_best, ok, H, cA, cB
+
+
+def _icp_refit(H, U, Vt, cA, cB, ok, T_cur):
+    """The rest of the trip: the refit where it is ``ok``, else T_cur."""
+    return torch.where(ok[:, None, None], _rigid_from_svd(H, U, Vt, cA, cB), T_cur)
+
+
+def _icp_result(c: _IcpClouds, T_cur, T_best, e_best, init_T):
+    """The last refit scored too; pairs with fewer than 4 valid points on a
+    side keep init_T."""
+    err_last = _icp_match(c, T_cur)[3]
+    T_best = torch.where((err_last < e_best)[:, None, None], T_cur, T_best)
+    enough = (c.n_src >= 4) & (c.n_dst >= 4)
+    return torch.where(enough[:, None, None], T_best, init_T)
+
+
+def _masked_icp_eager(src, src_valid, dst, dst_valid, init_T, iters: int,
+                      trim: float) -> torch.Tensor:
+    """``masked_icp`` as a Python loop over its steps."""
+    c = _icp_clouds(src, src_valid, dst, dst_valid, trim)
+    init_T = init_T.float()
+    T_cur = T_best = init_T
+    e_best = torch.full((src.shape[0],), float("inf"), device=src.device)
+    for _ in range(iters):
+        T_best, e_best, ok, H, cA, cB = _icp_score_and_cov(c, T_cur, T_best, e_best)
+        U, _, Vt = torch.linalg.svd(H, full_matrices=False)
+        T_cur = _icp_refit(H, U, Vt, cA, cB, ok, T_cur)
+    return _icp_result(c, T_cur, T_best, e_best, init_T)
+
+
+class _IcpGraphs:
+    """``masked_icp`` at one shape as four CUDA graphs over static buffers:
+    ``start`` (masks, counts, trim ranks, the state), ``trip`` (a trip up to
+    the refit's SVD), ``refit`` (the rest of the trip) and ``result``.  The
+    batched SVD runs eagerly between ``trip`` and ``refit``: its error
+    check waits on the card, which no capture may do.  A graph replays the
+    kernels the eager steps launch, in their order and at their shapes, so
+    the poses are the eager loop's bits."""
+
+    def __init__(self, inputs, trim: float):
+        dev = inputs[0].device
+        self.inputs = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                       for t in inputs]
+        P = inputs[0].shape[0]
+        self.T_cur = torch.empty((P, 4, 4), device=dev)
+        self.T_best = torch.empty_like(self.T_cur)
+        self.e_best = torch.empty((P,), device=dev)
+        self.trim = trim
+        self.load(inputs)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):   # first calls, uncaptured: lazy set-up
+            self._start()
+            self._trip()
+            U, _, Vt = torch.linalg.svd(self.H, full_matrices=False)
+            self.U, self.Vt = U.clone(), Vt.clone()     # the SVD's strides kept
+            self._refit()
+            self._result()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}
+        for name in ("start", "trip", "refit", "result"):   # in the order data flows
+            g = self.graphs[name] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                getattr(self, "_" + name)()
+
+    def load(self, inputs) -> None:
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
+
+    def _start(self):
+        src, src_valid, dst, dst_valid, init_T = self.inputs
+        self.c = _icp_clouds(src, src_valid, dst, dst_valid, self.trim)
+        self.init_T = init_T.float()
+        self.T_cur.copy_(self.init_T)
+        self.T_best.copy_(self.init_T)
+        self.e_best.fill_(float("inf"))
+
+    def _trip(self):
+        T_best, e_best, self.ok, self.H, self.cA, self.cB = _icp_score_and_cov(
+            self.c, self.T_cur, self.T_best, self.e_best)
+        self.T_best.copy_(T_best)
+        self.e_best.copy_(e_best)
+
+    def _svd(self):
+        U, _, Vt = torch.linalg.svd(self.H, full_matrices=False)
+        self.U.copy_(U)
+        self.Vt.copy_(Vt)
+
+    def _refit(self):
+        self.T_cur.copy_(_icp_refit(self.H, self.U, self.Vt, self.cA, self.cB,
+                                    self.ok, self.T_cur))
+
+    def _result(self):
+        self.out = _icp_result(self.c, self.T_cur, self.T_best, self.e_best,
+                               self.init_T)
+
+    def run(self, iters: int) -> torch.Tensor:
+        """Replay over the loaded inputs; the pose is the static output."""
+        g = self.graphs
+        g["start"].replay()
+        for _ in range(iters):
+            g["trip"].replay()
+            self._svd()
+            g["refit"].replay()
+        g["result"].replay()
+        return self.out
+
+
+_ICP_GRAPHS: "OrderedDict[tuple, _IcpGraphs]" = OrderedDict()
+_ICP_GRAPH_SHAPES = 4       # shapes kept, the least recently used dropped first
+_ICP_LOCK = threading.Lock()    # a call's static buffers are every caller's
+
+
+def _icp_graphs(inputs, trim: float) -> _IcpGraphs:
+    """The graphs of the inputs' shape, captured on first use."""
+    key = (inputs[0].device, trim, torch.backends.cuda.matmul.allow_tf32,
+           tuple((tuple(t.shape), t.dtype) for t in inputs))
+    graphs = _ICP_GRAPHS.get(key)
+    if graphs is None:
+        with span("icp.capture"):
+            if len(_ICP_GRAPHS) >= _ICP_GRAPH_SHAPES:
+                torch.cuda.synchronize(inputs[0].device)   # its last replay done
+                _ICP_GRAPHS.popitem(last=False)
+            graphs = _ICP_GRAPHS[key] = _IcpGraphs(inputs, trim)
+        count("icp_graph_capture")
+    else:
+        _ICP_GRAPHS.move_to_end(key)
+        graphs.load(inputs)
+    return graphs
+
+
 def masked_icp(src: torch.Tensor, src_valid: torch.Tensor, dst: torch.Tensor,
                dst_valid: torch.Tensor, init_T: torch.Tensor, iters: int = 8,
                trim: float = 0.7) -> torch.Tensor:
@@ -160,55 +368,22 @@ def masked_icp(src: torch.Tensor, src_valid: torch.Tensor, dst: torch.Tensor,
     original points; every iterate (``init_T`` included) is scored by its
     symmetric trimmed RMS and the best one is returned.  Pairs with fewer
     than 4 valid points on a side keep ``init_T``.
+
+    On one card, outside a capture and without gradients, the loop replays
+    CUDA graphs of its shape (``_IcpGraphs``, the same bits); otherwise it
+    runs eagerly.
     """
-    N = src.shape[1]
-    M = dst.shape[1]
-    srcv = src_valid.bool()
-    dstv = dst_valid.bool()
-    n_src = srcv.sum(-1)
-    n_dst = dstv.sum(-1)
-    k_src = torch.clamp((trim * n_src).int(), 4, N).long()
-    k_dst = torch.clamp((trim * n_dst).int(), 4, M).long()
-    init_T = init_T.float()
-    inf = torch.tensor(float("inf"), device=src.device)
-
-    def match(T):
-        s = transform_pcd(src, T[:, :3, :3], T[:, :3, 3])
-        d2 = sq_dist_matrix(s, dst)
-        d2 = torch.where(dstv[:, None, :], d2, inf)
-        d2 = torch.where(srcv[:, :, None], d2, inf)
-        d2f, nn_f = torch.min(d2, dim=-1)
-        df = torch.where(srcv, torch.sqrt(d2f), inf)
-        thr_f = torch.sort(df, dim=-1).values.gather(
-            1, torch.clamp(k_src - 1, min=0)[:, None])
-        wf = (srcv & (df <= thr_f) & torch.isfinite(df)).float()
-        d2b, nn_b = torch.min(d2, dim=1)
-        db = torch.where(dstv, torch.sqrt(d2b), inf)
-        thr_b = torch.sort(db, dim=-1).values.gather(
-            1, torch.clamp(k_dst - 1, min=0)[:, None])
-        wb = (dstv & (db <= thr_b) & torch.isfinite(db)).float()
-        wsum = wf.sum(-1) + wb.sum(-1)
-        sq = (torch.where(wf > 0, df * df, 0.0).sum(-1)
-              + torch.where(wb > 0, db * db, 0.0).sum(-1))
-        err = torch.sqrt(sq / torch.clamp(wsum, min=1.0))
-        A = torch.cat([src, _take(src, nn_b)], dim=1)
-        B = torch.cat([_take(dst, nn_f), dst], dim=1)
-        return A, B, torch.cat([wf, wb], dim=1), err
-
-    T_cur = T_best = init_T
-    e_best = torch.full((src.shape[0],), float("inf"), device=src.device)
-    for _ in range(iters):
-        A, B, w, err = match(T_cur)
-        better = err < e_best
-        T_best = torch.where(better[:, None, None], T_cur, T_best)
-        e_best = torch.where(better, err, e_best)
-        ok = torch.sum(w, dim=-1) >= 4
-        T_cur = torch.where(ok[:, None, None], weighted_kabsch(A, B, w), T_cur)
-    # the last refit was produced but never scored: score it too
-    err_last = match(T_cur)[3]
-    T_best = torch.where((err_last < e_best)[:, None, None], T_cur, T_best)
-    enough = (n_src >= 4) & (n_dst >= 4)
-    return torch.where(enough[:, None, None], T_best, init_T)
+    inputs = (src, src_valid, dst, dst_valid, init_T)
+    if (src.is_cuda and all(t.device == src.device for t in inputs)
+            and not torch.cuda.is_current_stream_capturing()
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs))):
+        count("icp_graph_replay")
+        with _ICP_LOCK:
+            with torch.cuda.device(src.device), torch.inference_mode():
+                out = _icp_graphs(inputs, trim).run(iters)
+            return out.clone()
+    count("icp_eager")
+    return _masked_icp_eager(src, src_valid, dst, dst_valid, init_T, iters, trim)
 
 
 def icp(A: torch.Tensor, B: torch.Tensor, init_T: Optional[torch.Tensor] = None,

@@ -537,3 +537,120 @@ def original_torch_state(module, kind: str, seed: int):
             a = a[:, :, None]
         original[name] = a
     return port, original
+
+
+def icp_inputs(P: int, N: int, M: int, seed: int, kind: str = "mixed",
+               device="cpu"):
+    """``masked_icp``'s inputs (src, src_valid, dst, dst_valid, init_T):
+    P object clouds of N points some 0.7 m away and M points of the same
+    surface moved by a pose, seen in part, with noise, outliers and a start
+    pose some degrees and cm off.  ``kind`` "mixed" leaves pair 1 with 3
+    valid source points and pair 2 with no valid target point (where P
+    allows); "invalid" leaves no valid point in any cloud."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+
+    def rot(axis, ang):
+        a = axis / np.linalg.norm(axis)
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        return np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K
+
+    surf = rs.randn(P, max(N, M), 3) * [0.05, 0.04, 0.02] + [0.0, 0.0, 0.7]
+    src = surf[:, :N] + rs.randn(P, N, 3) * 0.001
+    dst = np.empty((P, M, 3))
+    init = np.tile(np.eye(4), (P, 1, 1))
+    for p in range(P):
+        R, t = rot(rs.randn(3), rs.uniform(0.1, 0.5)), rs.randn(3) * 0.05
+        pts = surf[p, rs.permutation(max(N, M))[:M]]
+        dst[p] = pts @ R.T + t + rs.randn(M, 3) * 0.001
+        out = rs.rand(M) < 0.1
+        dst[p, out] += rs.randn(int(out.sum()), 3) * 0.05
+        init[p, :3, :3] = rot(rs.randn(3), rs.uniform(0.02, 0.1)) @ R
+        init[p, :3, 3] = t + rs.randn(3) * 0.02
+    src_valid = rs.rand(P, N) > 0.2
+    dst_valid = rs.rand(P, M) > 0.3
+    if kind == "invalid":
+        src_valid[:] = False
+        dst_valid[:] = False
+    elif kind == "mixed":
+        if P > 1:
+            src_valid[1] = False
+            src_valid[1, :3] = True
+        if P > 2:
+            dst_valid[2] = False
+    out = (src.astype(np.float32), src_valid, dst.astype(np.float32), dst_valid,
+           init.astype(np.float32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in out)
+
+
+def parent_masked_icp(src, src_valid, dst, dst_valid, init_T, iters: int = 8,
+                      trim: float = 0.7):
+    """``oryon_tpu_torch.geometry.kabsch.masked_icp`` as one eager loop, kept
+    as it was written before the loop was split into steps: the same
+    operations in the same order, so the same bits."""
+    import torch
+
+    from oryon_tpu_torch.geometry.kabsch import _centered_cov, _compose, _det3, _take
+    from oryon_tpu_torch.geometry.pcd import sq_dist_matrix, transform_pcd
+
+    def weighted_kabsch(A, B, weights, eps=1e-6):
+        H, cA, cB = _centered_cov(A, B, weights, eps)
+        U, _, Vt = torch.linalg.svd(H, full_matrices=False)
+        V = Vt.transpose(-1, -2)
+        det = _det3(V @ U.transpose(-1, -2))
+        D = torch.zeros_like(H)
+        D[..., 0, 0] = 1.0
+        D[..., 1, 1] = 1.0
+        D[..., 2, 2] = det
+        R = V @ D @ U.transpose(-1, -2)
+        t = cB - torch.einsum("...ij,...j->...i", R, cA)
+        return _compose(R, t)
+
+    N = src.shape[1]
+    M = dst.shape[1]
+    srcv = src_valid.bool()
+    dstv = dst_valid.bool()
+    n_src = srcv.sum(-1)
+    n_dst = dstv.sum(-1)
+    k_src = torch.clamp((trim * n_src).int(), 4, N).long()
+    k_dst = torch.clamp((trim * n_dst).int(), 4, M).long()
+    init_T = init_T.float()
+    inf = torch.tensor(float("inf"), device=src.device)
+
+    def match(T):
+        s = transform_pcd(src, T[:, :3, :3], T[:, :3, 3])
+        d2 = sq_dist_matrix(s, dst)
+        d2 = torch.where(dstv[:, None, :], d2, inf)
+        d2 = torch.where(srcv[:, :, None], d2, inf)
+        d2f, nn_f = torch.min(d2, dim=-1)
+        df = torch.where(srcv, torch.sqrt(d2f), inf)
+        thr_f = torch.sort(df, dim=-1).values.gather(
+            1, torch.clamp(k_src - 1, min=0)[:, None])
+        wf = (srcv & (df <= thr_f) & torch.isfinite(df)).float()
+        d2b, nn_b = torch.min(d2, dim=1)
+        db = torch.where(dstv, torch.sqrt(d2b), inf)
+        thr_b = torch.sort(db, dim=-1).values.gather(
+            1, torch.clamp(k_dst - 1, min=0)[:, None])
+        wb = (dstv & (db <= thr_b) & torch.isfinite(db)).float()
+        wsum = wf.sum(-1) + wb.sum(-1)
+        sq = (torch.where(wf > 0, df * df, 0.0).sum(-1)
+              + torch.where(wb > 0, db * db, 0.0).sum(-1))
+        err = torch.sqrt(sq / torch.clamp(wsum, min=1.0))
+        A = torch.cat([src, _take(src, nn_b)], dim=1)
+        B = torch.cat([_take(dst, nn_f), dst], dim=1)
+        return A, B, torch.cat([wf, wb], dim=1), err
+
+    T_cur = T_best = init_T
+    e_best = torch.full((src.shape[0],), float("inf"), device=src.device)
+    for _ in range(iters):
+        A, B, w, err = match(T_cur)
+        better = err < e_best
+        T_best = torch.where(better[:, None, None], T_cur, T_best)
+        e_best = torch.where(better, err, e_best)
+        ok = torch.sum(w, dim=-1) >= 4
+        T_cur = torch.where(ok[:, None, None], weighted_kabsch(A, B, w), T_cur)
+    err_last = match(T_cur)[3]
+    T_best = torch.where((err_last < e_best)[:, None, None], T_cur, T_best)
+    enough = (n_src >= 4) & (n_dst >= 4)
+    return torch.where(enough[:, None, None], T_best, init_T)

@@ -814,3 +814,92 @@ def test_k1_f32_head_forward_gives_the_same_bits_whatever_the_row_split(cuda, L)
     batch = mha_lanes.fused_mha_lanes_qkv(qkv, m, 4, 0.25)
     torch.cuda.synchronize()
     assert torch.equal(alone, batch[:4])
+
+
+# pairs, trips, trim, kind of icp_inputs; 1024 points a cloud as served
+ICP_CASES = [(1, 48, 0.6, "mixed"), (8, 48, 0.6, "mixed"), (3, 48, 0.6, "mixed"),
+             (8, 1, 0.6, "invalid"), (3, 8, 0.7, "invalid"), (8, 8, 0.7, "mixed"),
+             (1, 1, 0.7, "mixed")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,iters,trim,kind", ICP_CASES)
+def test_icp_graphs_give_the_eager_loops_bits(cuda, P, iters, trim, kind):
+    """``masked_icp`` on the card replays CUDA graphs; its poses are the
+    eager loop's bits and those of the loop before it was split into steps,
+    degenerate and all-invalid pairs included."""
+    from _torch_helpers import icp_inputs, parent_masked_icp
+    from oryon_tpu_torch.geometry import kabsch
+
+    inputs = icp_inputs(P, 1024, 1024, seed=100 + P + iters, kind=kind, device=cuda)
+    with torch.inference_mode():      # as the pipeline calls it
+        got = kabsch.masked_icp(*inputs, iters=iters, trim=trim)
+    eager = kabsch._masked_icp_eager(*inputs, iters, trim)
+    parent = parent_masked_icp(*inputs, iters=iters, trim=trim)
+    assert torch.equal(got, eager) and torch.equal(got, parent)
+    if kind == "invalid":
+        assert torch.equal(got, inputs[4])
+
+
+@pytest.mark.cuda
+def test_icp_graphs_refresh_their_inputs_call_after_call(cuda):
+    """Five calls in a row at one shape with other inputs each: every pose
+    is the eager loop's bits, so each call reads its own inputs; one capture,
+    five replays."""
+    from _torch_helpers import icp_inputs
+    from oryon_tpu_torch.geometry import kabsch
+    from oryon_tpu_torch.utils import profiling
+
+    kabsch._ICP_GRAPHS.clear()
+    was = profiling.set_spans(True)
+    try:
+        outs = []
+        for seed in range(5):
+            inputs = icp_inputs(8, 1024, 1024, seed=200 + seed, device=cuda)
+            with torch.inference_mode():
+                outs.append((kabsch.masked_icp(*inputs, iters=48, trim=0.6),
+                             kabsch._masked_icp_eager(*inputs, 48, 0.6)))
+        counters = profiling.take_counters()
+    finally:
+        profiling.set_spans(was)
+        profiling.take_spans()
+    assert all(torch.equal(got, eager) for got, eager in outs)
+    assert not torch.equal(outs[0][0], outs[1][0])
+    assert counters == {"icp_graph_capture": 1, "icp_graph_replay": 5}
+
+
+@pytest.mark.cuda
+def test_icp_graphs_capture_a_shape_once(cuda):
+    """A second shape captures once and the first is not captured again; a
+    call that needs gradients runs eagerly; past four shapes the least
+    recently used is dropped and captured again when it comes back."""
+    from _torch_helpers import icp_inputs
+    from oryon_tpu_torch.geometry import kabsch
+    from oryon_tpu_torch.utils import profiling
+
+    kabsch._ICP_GRAPHS.clear()
+    a = icp_inputs(2, 256, 192, seed=1, device=cuda)
+    b = icp_inputs(5, 256, 192, seed=2, device=cuda)
+    was = profiling.set_spans(True)
+    try:
+        got = [kabsch.masked_icp(*a, iters=4), kabsch.masked_icp(*a, iters=6),
+               kabsch.masked_icp(*b, iters=4), kabsch.masked_icp(*a, iters=4)]
+        src = a[0].clone().requires_grad_()
+        kabsch.masked_icp(src, *a[1:], iters=2)
+        first = profiling.take_counters()
+        names = [r.name for r in profiling.take_spans()]
+        for P in (1, 3, 4):                       # three more shapes: five in all
+            kabsch.masked_icp(*icp_inputs(P, 64, 64, seed=P, device=cuda), iters=2)
+        assert len(kabsch._ICP_GRAPHS) == 4       # b's dropped, a's kept
+        again = [kabsch.masked_icp(*a, iters=4), kabsch.masked_icp(*b, iters=4)]
+        second = profiling.take_counters()
+    finally:
+        profiling.set_spans(was)
+        profiling.take_spans()
+    assert first == {"icp_graph_capture": 2, "icp_graph_replay": 4, "icp_eager": 1}
+    assert names.count("icp.capture") == 2
+    assert second == {"icp_graph_capture": 4, "icp_graph_replay": 5}
+    assert torch.equal(got[0], got[3]) and torch.equal(again[0], got[0])
+    assert torch.equal(again[1], got[2])
+    assert torch.equal(got[1], kabsch._masked_icp_eager(*a, 6, 0.7))
+    assert torch.equal(got[2], kabsch._masked_icp_eager(*b, 4, 0.7))

@@ -105,13 +105,15 @@ def test_predictor_spans_nest_per_request(predictor):
     """One ``engine.request`` a chunk (three requests at batch 2: two
     chunks, the second padded), each holding every span of the path in
     order under its parent, inside its parent's interval, with one request
-    id; the counters see two new prompts, two cached and one pad."""
+    id; the counters see two new prompts, two cached, one pad and the two
+    chunks' ICP calls on the eager loop (the CPU's)."""
     predictor._text_cache.clear()
     profiling.set_spans(True)
     predictor.predict(_requests(["mug", "bottle", "mug"]))
     profiling.set_spans(False)
     records = profiling.take_spans()
-    assert profiling.take_counters() == {"text_miss": 2, "text_hit": 2, "padded_pairs": 1}
+    assert profiling.take_counters() == {"text_miss": 2, "text_hit": 2, "padded_pairs": 1,
+                                         "icp_eager": 2}
 
     roots = [r for r in records if r.parent is None]
     assert [r.name for r in roots] == ["engine.request"] * 2

@@ -28,8 +28,9 @@ def control_numbers(cell, data, device) -> dict:
     import numpy as np
     import torch
 
-    from perfbench.reference import model as ref_model, pose as ref_pose
+    from perfbench.reference import pose as ref_pose
     cfg, dev = cell["config"], torch.device(device)
+    ref_model = common.reference(cfg)
     pipe = cfg["pipeline"]
     gen = torch.Generator(device=dev).manual_seed(data["seed"])
     ref = ref_model.build(cfg, dev)

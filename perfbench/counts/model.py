@@ -18,12 +18,12 @@ def _request_flops(cfg_json: str, pairs: int) -> int:
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from perfbench.reference.model import Oryon
+    from perfbench.lib.common import reference
 
     cfg = json.loads(cfg_json)
     m = cfg["model"]
     with torch.device("meta"):
-        model = Oryon(cfg)
+        model = reference(cfg).Oryon(cfg)
         rgb = torch.zeros((pairs, *m["image_hw"], 3), dtype=torch.uint8)
         text = torch.zeros((pairs, m["fusion"]["num_prompts"], m["text"]["embed_dim"]))
         with FlopCounterMode(display=False) as fc:

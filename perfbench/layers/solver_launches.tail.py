@@ -1,0 +1,7 @@
+"""``solver_launches.serve``, read in the cells whose end-to-end metric is the tail
+of a request's latency (``serve_p95_ms``)."""
+from perfbench.lib.common import layer_reader
+
+
+def read(data, cell):
+    return layer_reader("solver_launches.serve").read(data, cell)

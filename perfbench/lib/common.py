@@ -70,6 +70,23 @@ def traffic_module(generator: str):
     return importlib.import_module(f"perfbench.traffic.{generator}")
 
 
+def reference(cfg: dict):
+    """A configuration's plain model reference, ``perfbench/reference/<name>.py``
+    for its ``"reference"`` key (``model`` without one); the contract such a
+    module keeps is in ``perfbench/reference/__init__.py``."""
+    name = cfg.get("reference", "model")
+    module = f"perfbench.reference.{name}"
+    if not isinstance(name, str) or not name.isidentifier():
+        raise BenchError(f"reference {name!r} is not a module name")
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise BenchError(f"the configuration names the reference {name!r}, which has no file "
+                         f"{os.path.join(ROOT, 'reference', name + '.py')}") from None
+
+
 def layer_reader(metric: str):
     """The reader of a per-layer metric, ``perfbench/layers/<metric>.py``."""
     path = os.path.join(ROOT, "layers", f"{metric}.py")

@@ -7,14 +7,15 @@ Set-up and warm-up as ``perfbench/run.py`` makes them (the cell's weights,
 views and engine from the seed), then, while the program has spans
 (``oryon_tpu_torch.utils.profiling.set_spans``):
 
-1. the cell's ``trace_requests`` traced with the card's activity alone and
-   spans off, as a traced run of the benchmark traces them: busy and idle;
-2. spans on, the cell's ``label_requests`` traced with the host's
-   operations too: the idle gaps by the innermost span or operation open at
-   their start (``lib/spans.reduce``), the share no span or operation
-   holds ("host"), and each span's kernel launches and host
-   synchronisations (``lib/spans.span_counts``), held against the
-   profile's device kernels;
+1. and 2. the profiled requests of a traced run of the benchmark
+   (``traffic/serve_closed.profile``): the cell's ``trace_requests``
+   traced with the card's activity alone and spans off (busy and idle),
+   then, spans on, its ``label_requests`` traced with the host's operations
+   too: the idle gaps by the innermost span or operation open at their
+   start, the share no span or operation holds ("host"), and each span's
+   kernel launches and host synchronisations, the calls held against the
+   profile's device kernels with each graph launch taken as the kernels it
+   ran (``lib/spans.launches_agree``);
 3. ``--turns`` pairs of windows of ``--seconds`` each, spans off then on,
    unprofiled: the mean request time of each, and in the windows with spans
    on each span's host time and the counters.
@@ -42,7 +43,7 @@ def set_up(cell: dict, seed: int, device: str):
     import torch
 
     from perfbench.lib import weights
-    from perfbench.reference import model as ref_model, pose as ref_pose
+    from perfbench.reference import pose as ref_pose
     from perfbench.traffic import serve_closed
 
     wl, cfg = cell["workload"], cell["config"]
@@ -50,7 +51,7 @@ def set_up(cell: dict, seed: int, device: str):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.device("meta"):
-        spec, pspec = ref_model.Oryon(cfg), ref_pose.PointDSC(cfg["pointdsc"])
+        spec, pspec = common.reference(cfg).Oryon(cfg), ref_pose.PointDSC(cfg["pointdsc"])
     predictor = serve_closed.build_program(cfg, weights.make_state(spec, gen, dev),
                                            weights.make_state(pspec, gen, dev), wl, dev,
                                            seed + 1)
@@ -78,69 +79,55 @@ def window(predictor, next_request, sync, seconds: float) -> dict:
     return {"requests": len(lat), "mean_ms": statistics.fmean(lat) * 1e3}
 
 
-def profiled(wl, predictor, next_request, sync, profiling, on_card: bool) -> dict:
-    """Steps 1 and 2 of the module's list."""
-    import torch
+def profiled(cell, predictor, next_request, sync, profiling, on_card: bool) -> dict:
+    """Steps 1 and 2 of the module's list, made by ``serve_closed.profile``;
+    spans off after them."""
+    from perfbench.lib import spans as spans_lib
+    from perfbench.traffic import serve_closed
 
-    from perfbench.lib import spans as spans_lib, trace as trace_lib
+    wl = cell["workload"]
 
-    acts = torch.profiler.ProfilerActivity
-    card = [acts.CUDA] if on_card else []
-    with torch.profiler.profile(activities=card or [acts.CPU]) as prof:
-        ta = time.perf_counter()
-        for _ in range(wl["trace_requests"]):
-            predictor.predict(next_request())
-        sync()
-        tb = time.perf_counter()
-    card_only = trace_lib.reduce(prof, tb - ta)
-    profiling.set_spans(True)
-    with torch.profiler.profile(activities=[acts.CPU] + card) as prof:
-        tc = time.perf_counter()
-        for _ in range(wl["label_requests"]):
-            predictor.predict(next_request())
-        sync()
-        td = time.perf_counter()
+    def serve(reqs, events=None):
+        return predictor.predict(reqs, stage_events=events)
+
+    device, _, _, counts = serve_closed.profile(wl, cell["config"], next_request, serve,
+                                                serve_closed.Capture(predictor), sync, on_card,
+                                                profiling)
     profiling.set_spans(False)
     profiling.take_spans()
     profiling.take_counters()
-    every = spans_lib.reduce(prof, td - tc, top=10 ** 6)
-    idle = sum(s for _, s in every["idle_gaps"])
-    counts = spans_lib.span_counts(prof)
+    lab = device["labelled"]
     n = max(counts["requests"], 1)
     launches = counts["request"]["launches"]
-    agree = abs(launches - counts["kernels"]) <= 0.02 * max(counts["kernels"], 1)
     return {
-        "card_only": {"busy_s": card_only["busy_s"], "window_s": card_only["window_s"],
-                      "idle_pct": 100.0 * (1 - card_only["busy_s"] / card_only["window_s"]),
-                      "request_ms": 1e3 * (tb - ta) / wl["trace_requests"]},
-        "labelled": {"window_s": td - tc, "request_ms": 1e3 * (td - tc) / wl["label_requests"],
-                     "busy_s": every["busy_s"],
-                     "idle_s": idle, "idle_gaps": every["idle_gaps"][:12],
-                     "host_share_pct": 100.0 * dict(every["idle_gaps"]).get("host", 0.0)
-                     / max(idle, 1e-12)},
+        "card_only": {"busy_s": device["busy_s"], "window_s": device["window_s"],
+                      "idle_pct": 100.0 * (1 - device["busy_s"] / device["window_s"]),
+                      "request_ms": 1e3 * device["request_s"]["card_only"]},
+        "labelled": {"window_s": lab["window_s"],
+                     "request_ms": 1e3 * device["request_s"]["with_host"],
+                     "busy_s": lab["busy_s"], "idle_s": lab["idle_s"],
+                     "idle_gaps": device["idle_gaps"],
+                     "host_share_pct": 100.0 * lab["host_s"] / max(lab["idle_s"], 1e-12)},
         "counts": counts,
-        "launches_per_request": launches / n if agree else None,
-        "launch_calls_vs_kernels": [launches, counts["kernels"]],
+        "launches_per_request": launches / n if spans_lib.launches_agree(counts) else None,
+        "launch_calls_vs_kernels": [launches, counts["graph_launches"], counts["graph_kernels"],
+                                    counts["kernels"]],
         "syncs_per_request": counts["request"]["syncs"] / n,
     }
 
 
 def measure(cell: dict, seed: int, seconds: float, turns: int, device: str = "cuda") -> dict:
     """The module's steps over one cell: the result line's data."""
+    from perfbench.lib import spans as spans_lib
     t_start = time.perf_counter()
     predictor, next_request, sync = set_up(cell, seed, device)
-    try:
-        from oryon_tpu_torch.utils import profiling
-        has_spans = hasattr(profiling, "set_spans")
-    except ImportError:
-        has_spans = False
+    profiling = spans_lib.program_spans()
+    has_spans = profiling is not None
     out = {"workload": cell["name"], "seed": seed, "spans": has_spans,
            "setup_s": time.perf_counter() - t_start, "card": common.card_identity(),
            "device": device}
     if has_spans:
-        from perfbench.lib import spans as spans_lib
-        out.update(profiled(cell["workload"], predictor, next_request, sync, profiling,
-                            device == "cuda"))
+        out.update(profiled(cell, predictor, next_request, sync, profiling, device == "cuda"))
     out["turns"], totals, counters, n_on = [], {}, {}, 0
     for _ in range(turns):
         turn = {"off": window(predictor, next_request, sync, seconds)}
@@ -177,9 +164,10 @@ def report(out: dict) -> None:
               file=sys.stderr)
     print(f"counters a request: {out['counters_per_request']}", file=sys.stderr)
     if out["launches_per_request"] is None:
-        calls, kernels = out["launch_calls_vs_kernels"]
-        print(f"launch calls under {ROOT} {calls} against {kernels} device kernels: more "
-              f"than 2% apart, no launch count", file=sys.stderr)
+        calls, graphs, graph_kernels, kernels = out["launch_calls_vs_kernels"]
+        print(f"launch calls under {ROOT} {calls} ({graphs} graph launches, which ran "
+              f"{graph_kernels} kernels) against {kernels} device kernels: more than 2% apart, "
+              f"no launch count", file=sys.stderr)
 
 
 def main(argv=None) -> int:

@@ -5,13 +5,18 @@ on the host.
 The traffic mix's file gives the batch, the frame size, the pool of view
 pairs generated at set-up from the seed, the prompts and the requests
 warmed up and profiled in a traced run; the cell's file the sample checked
-after the window and its limits; the configuration the pipeline's settings.  Every seed gives the same sizes: requests of
-``batch`` pairs drawn from a pool of ``pool_pairs``, so a seed changes the
-views and their order, not the work's shape.
+after the window and its limits; the configuration the pipeline's settings
+and its model reference (``lib/common.reference``).  Every seed gives the
+same sizes: requests of ``batch`` pairs drawn from a pool of
+``pool_pairs``, so a seed changes the views and their order, not the
+work's shape.
 
 ``run`` returns the run's data: end-to-end numbers, per-request host times
 and stage events (traced runs), the profile's reduction, the launch counts
-over the profiled requests and the comparison's numbers.
+over the profiled requests, the program's spans and counters a request
+under ``spans`` (traced runs: launch calls and syncs from the labelled
+profile, host ms and counters over the window's requests) and the
+comparison's numbers.
 """
 from __future__ import annotations
 
@@ -23,8 +28,8 @@ from typing import Dict
 
 import numpy as np
 
-from perfbench.lib import serve_check, weights
-from perfbench.reference import model as ref_model_mod, pose as ref_pose
+from perfbench.lib import common, serve_check, spans as spans_lib, weights
+from perfbench.reference import pose as ref_pose
 from perfbench.traffic.views import REAL275_K, view_pair
 
 
@@ -157,7 +162,7 @@ def run(cell: Dict, seed: int, seconds: float, trace: bool, t_start: float, devi
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.device("meta"):
-        spec = ref_model_mod.Oryon(cfg)
+        spec = common.reference(cfg).Oryon(cfg)
         pspec = ref_pose.PointDSC(cfg["pointdsc"])
     state = weights.make_state(spec, gen, dev)
     pdsc_state = weights.make_state(pspec, gen, dev)
@@ -184,10 +189,11 @@ def run(cell: Dict, seed: int, seconds: float, trace: bool, t_start: float, devi
     check_at = set(random.Random(seed ^ 0x5EED).sample(range(wl["check_within"]),
                                                        wl["check_requests"]))
     setup_s = time.perf_counter() - t_start
-    trace_data, launches, k2_work = None, None, []
+    trace_data, launches, k2_work, counts = None, None, [], None
+    profiling = spans_lib.program_spans() if trace else None
     if trace:
-        trace_data, launches, k2_work = profile(wl, cfg, next_request, serve, capture, sync,
-                                                on_card)
+        trace_data, launches, k2_work, counts = profile(wl, cfg, next_request, serve, capture,
+                                                        sync, on_card, profiling)
     # the window: the requests after the profiled ones
     samples, lat, host_ms, stage_ms = [], [], [], []
     need = wl["check_within"] if keep else 0     # the control's runs answer the whole sample
@@ -213,6 +219,10 @@ def run(cell: Dict, seed: int, seconds: float, trace: bool, t_start: float, devi
         i += 1
     t_end = time.perf_counter()
     n_req = i
+    spans = None
+    if profiling:       # on since the labelled profile: the window's spans
+        spans = spans_lib.per_request(counts, profiling.take_spans(), profiling.take_counters())
+        profiling.set_spans(False)
     if trace_data:
         per = trace_data["request_s"]
         print(f"perfbench: a profiled request took {per['card_only'] * 1e3:.1f} ms with the "
@@ -236,20 +246,28 @@ def run(cell: Dict, seed: int, seconds: float, trace: bool, t_start: float, devi
     kept = {"samples": samples, "tokenize": tokenize, "noise_seed": noise_seed} if keep else {}
     return {**kept, "e2e": e2e, "requests": n_req, "pairs": pairs, "window_s": window,
             "latency_s": lat, "host_ms": host_ms, "stage_ms": stage_ms, "trace": trace_data,
-            "launches": launches, "k2_work": k2_work,
+            "launches": launches, "k2_work": k2_work, "spans": spans,
             "memory_peak_bytes": peak, "checks": checks, "missing": missing,
             "attempted": n_req, "failed": 0}
 
 
-def profile(wl, cfg, next_request, serve, capture, sync, on_card):
+def profile(wl, cfg, next_request, serve, capture, sync, on_card, profiling=None):
     """The profiled requests of a traced run, before its window.  The first
-    ``trace_requests`` are traced with the card's activity alone, which
-    leaves the host's dispatch nearly as fast as unprofiled: they give the
-    busy seconds and the window, the kernels, the port's launch counts over
-    the same requests and the matching work each needed (valid sources x
-    kept targets).  The next ``label_requests`` are traced with the host's
-    operations too, which slows the dispatch: they only label the idle
-    gaps by what the host was doing."""
+    ``trace_requests`` are traced with the card's activity alone and the
+    program's spans off, which leaves the host's dispatch nearly as fast as
+    unprofiled: they give the busy seconds and the window, the kernels, the
+    port's launch counts over the same requests and the matching work each
+    needed (valid sources x kept targets).  Then, where the program has
+    spans (``profiling``, ``lib/spans.program_spans``), they are turned on:
+    the next ``label_requests`` are traced with the host's operations too,
+    which slows the dispatch; they label the idle gaps by the span or
+    operation open at their start and give the launch calls and host syncs
+    of each span.  Their span records and counters are dropped, and spans
+    stay on for the window, whose requests give each span's host time and
+    the counters (a span costs some 15 us on).  Returns (device, launches,
+    work, counts): ``counts`` is ``lib/spans.span_counts``'s, None where the
+    program has no spans; ``device["labelled"]`` the labelled profile's
+    busy, idle and unlabelled ("host") seconds."""
     import torch
     from oryon_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
@@ -270,26 +288,37 @@ def profile(wl, cfg, next_request, serve, capture, sync, on_card):
         tb = time.perf_counter()
     launches = launch_counts()
     device = trace_lib.reduce(prof, tb - ta)
+    if profiling:
+        profiling.set_spans(True)
     with torch.profiler.profile(activities=[acts.CPU] + ([acts.CUDA] if on_card else [])) as prof:
         tc = time.perf_counter()
         for _ in range(wl["label_requests"]):
             serve(next_request())
         sync()
         td = time.perf_counter()
-    device["idle_gaps"] = trace_lib.reduce(prof, td - tc)["idle_gaps"]
+    labelled = spans_lib.reduce(prof, td - tc, top=10 ** 6)
+    gaps = labelled["idle_gaps"]
+    device["idle_gaps"] = gaps[:10]
+    device["labelled"] = {"window_s": td - tc, "busy_s": labelled["busy_s"],
+                          "idle_s": sum(s for _, s in gaps), "host_s": dict(gaps).get("host", 0.0)}
     device["request_s"] = {"card_only": (tb - ta) / wl["trace_requests"],
                            "with_host": (td - tc) / wl["label_requests"]}
+    counts = None
+    if profiling:
+        counts = spans_lib.span_counts(prof)
+        profiling.take_spans()
+        profiling.take_counters()
     cap = cfg["pipeline"]["src_capacity"]
     work = [int((torch.clamp(a.flatten(1).sum(-1), max=cap).double()
                  * b.flatten(1).sum(-1).double()).sum()) for a, b in masks]
-    return device, launches, work
+    return device, launches, work, counts
 
 
 def compare(cfg, wl, samples, seed, noise_seed, tokenize, dev) -> Dict:
     """The comparison's numbers: each one's worst over the sample."""
     import torch
     spec_gen = torch.Generator(device=dev).manual_seed(seed)
-    ref = ref_model_mod.build(cfg, dev)
+    ref = common.reference(cfg).build(cfg, dev)
     ref.load_state_dict(weights.make_state(ref, spec_gen, dev), strict=True)
     pdsc = ref_pose.build_pointdsc(cfg, dev)
     pdsc.load_state_dict(weights.make_state(pdsc, spec_gen, dev), strict=True)

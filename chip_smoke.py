@@ -29,7 +29,11 @@ Phases, each printing one line with its result and its time:
                pre-pass alone gives the plain version's absmax and int8 codes
                exactly; pre-pass and attention kernel timed apart
   5. k5        flash attention on [B, H, L, D] with segment ids, the same
-               edges and a head-dim-32 case
+               edges and a head-dim-32 case; r1: the EVA02 tower's rotary R1
+               in place on q and k of the packed [16, 577, 3072] bf16 (and
+               an f32 case at the tiny tower's shape) bitwise equal to its
+               plain version, the class row and v untouched, two launches
+               bitwise equal, timed beside the plain version, with its bound
   6. k3, k4    Swin window attention, packed windows and map-level (wgmma at
                head dim 32 behind a bias pre-pass), at both Swin-B stages,
                shifted and unshifted, and at the edges of the tiling (one
@@ -62,7 +66,14 @@ Phases, each printing one line with its result and its time:
                a batch of 8 beside the default on the same draws (K1 24, K2
                fp32 1, masks equal); then the small model (f32 towers)
                answers 2 requests through K1's f32 mode (the
-               one-block-a-head kernel, by the profiler) and K2
+               one-block-a-head kernel, by the profiler) and K2;
+               serve_eva: full_oryon(vlm="eva02") in bf16 + PointDSC + ICP
+               at B=8 answers 8 requests: R1 and K1 24 launches each, K2 1,
+               no rotation on the plain path (counter rope_plain); its
+               tower through K1 + R1 against the same tower on the plain
+               rotary and einsum attention; warm pairs/s; the SwiGLU's
+               products at the served rows with hidden 2730 beside the
+               aligned 2736 and 2752
  11. ckpt      the served model is saved with the port's save_checkpoint into
                a temporary experiment; OryonPredictor.from_config (another
                init seed, eval.ckpt=last, PointDSC from a fake published
@@ -861,6 +872,54 @@ def phase_k5(torch, iters):
                    f"({', '.join(n for n, *_ in K5_EDGES)}) max abs err {edge_err:.3e}, "
                    f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise "
                    f"equal; host {res['host_us']:.1f} us per wrapper call")
+    return res
+
+
+def _r1_case(torch, rope, g, shape, heads, dtype, pt_grid):
+    """(qkv, R1's output, the plain version's output, cos, sin) of one case."""
+    from oryon_tpu_torch.models.clip import rope_tables
+    B, L, C3 = shape
+    grid = int(round((L - 1) ** 0.5))
+    qkv = torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+    cos, sin = (torch.from_numpy(t).to(DEVICE)
+                for t in rope_tables(C3 // 3 // heads, grid, pt_grid))
+    got = rope.rope_qk_(qkv.clone(), cos, sin, heads)
+    want = rope.rope_qk_plain_(qkv.clone(), cos, sin, heads)
+    torch.cuda.synchronize()
+    C = C3 // 3
+    check(torch.equal(got[:, 0], qkv[:, 0]) and torch.equal(got[..., 2 * C:], qkv[..., 2 * C:]),
+          f"R1 at {list(shape)} {dtype}: the class row or v changed")
+    differ = int((got != want).sum())
+    check(differ == 0, f"R1 at {list(shape)} {dtype}: {differ} elements differ from the "
+                       f"plain version")
+    return qkv, got, want, cos, sin
+
+
+@phase("r1")
+def phase_r1(torch, iters):
+    from oryon_tpu_torch.models.clip import EVA_PT_GRID
+    from oryon_tpu_torch.ops.cuda import rope
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    B, L, C3 = K1_SHAPE
+    C, H = C3 // 3, K1_HEADS
+    qkv, got, want, cos, sin = _r1_case(torch, rope, g, K1_SHAPE, H, torch.bfloat16,
+                                        EVA_PT_GRID)
+    # the tiny tower's shape in f32 (4 heads of 16)
+    _r1_case(torch, rope, g, (2, 17, 3 * 64), 4, torch.float32, EVA_PT_GRID)
+    buf = qkv.clone()
+    same_twice(torch, lambda: rope.rope_qk_(buf.copy_(qkv), cos, sin, H).clone(), "R1")
+    res = {"err": compare(torch, got, want, "R1")}
+    res.update(timed(lambda: rope.rope_qk_(buf, cos, sin, H),
+                     lambda: rope.rope_qk_plain_(buf, cos, sin, H), None, iters))
+    res["host_us"] = host_us(lambda: rope.rope_qk_(buf, cos, sin, H))
+    # q and k of the patch rows read and written once, the f32 tables read
+    # once; two products and a sum an element, in f32
+    elems = B * (L - 1) * 2 * C
+    res.update(bound(2 * elems * qkv.element_size() + nbytes(cos, sin), {"f32": 3 * elems}))
+    res["line"] = (f"qkv {[B, L, C3]} bf16, {H} heads: bitwise the plain version (and f32 at "
+                   f"[2, 17, 192]), class row and v untouched, two launches bitwise equal; "
+                   f"{times_txt(res)}, bound / kernel {res['bound_ms'] / res['ms']:.1%}; "
+                   f"host {res['host_us']:.1f} us per wrapper call")
     return res
 
 
@@ -1842,6 +1901,80 @@ def phase_serve_small(torch):
     return {"line": f"2 requests answered, launches K1 {counts['k1']} (f32 mode, the "
                     f"one-block-a-head kernel {head} times in a profiled batch) K2 "
                     f"{counts['k2']}", "counts": counts}
+
+
+EVA_HIDDEN = (2730, 2736, 2752)   # EVA02-CLIP-L's SwiGLU width; the next multiples of 8, 64
+
+
+def _swiglu_ms(torch, rows: int, width: int, iters: int) -> dict:
+    """{hidden: (w1 ms, w3 ms)}: device ms of the SwiGLU's products at
+    ``rows`` rows, [rows, width] x [width, K] and [rows, K] x [K, width],
+    bf16 with their biases, as ``models/layers.Dense`` runs them."""
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    x = torch.randn(rows, width, generator=g, device=DEVICE).to(torch.bfloat16)
+    out = {}
+    for k in EVA_HIDDEN:
+        w1, h = (torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+                 for shape in ((k, width), (rows, k)))
+        w3 = torch.randn(width, k, generator=g, device=DEVICE).to(torch.bfloat16)
+        b1, b3 = (torch.zeros(n, device=DEVICE, dtype=torch.bfloat16) for n in (k, width))
+        out[k] = (cuda_ms(lambda: F.linear(x, w1, b1), iters),
+                  cuda_ms(lambda: F.linear(h, w3, b3), iters))
+    return out
+
+
+@phase("serve_eva")
+def phase_serve_eva(torch, timing_batches, iters):
+    """The EVA02-CLIP towers served at B=8 in bf16: one rotary (R1) and one
+    K1 launch a block, and the rotary never on its plain path."""
+    from oryon_tpu_torch.infer import OryonPredictor
+    from oryon_tpu_torch.models.layers import random_init_
+    from oryon_tpu_torch.models.oryon import full_oryon
+    from oryon_tpu_torch.models.pointdsc import PointDSC
+    from oryon_tpu_torch.utils import profiling
+
+    gen = torch.Generator().manual_seed(22)
+    model = random_init_(full_oryon(vlm="eva02"), gen)
+    pred = OryonPredictor(model, random_init_(PointDSC(), gen), device=DEVICE, batch_size=8,
+                          img_size=(224, 224), depth_hw=(480, 640), solver="pointdsc")
+    layers = model.vision_cfg.layers
+    reqs = _requests(np.random.RandomState(22), 8, ["mug", "laptop"])
+    profiling.take_counters()
+    was = profiling.set_spans(True)
+    try:
+        results, counts = _counted(torch, lambda: pred.predict(reqs))
+        counters = profiling.take_counters()
+    finally:
+        profiling.set_spans(was)
+        profiling.take_spans()
+    check(counts["rope"] == layers and counts["k1"] == layers and counts["k2"] == 1,
+          f"EVA02 batch of 8: launches {counts}, expected R1 {layers}, K1 {layers}, K2 1")
+    check("rope_plain" not in counters, f"rotations on the plain path: {counters}")
+    n_det = _check_results(results, reqs)
+    with torch.inference_mode():
+        size = model.vision_cfg.image_size
+        x = torch.rand(4, size, size, 3, generator=torch.Generator().manual_seed(5)).to(DEVICE)
+        fused = model.vlm_visual(x).float()
+        for blk in model.vlm_visual.resblocks:
+            blk.attn.attn_impl = "einsum"
+        plain = model.vlm_visual(x).float()
+        for blk in model.vlm_visual.resblocks:
+            blk.attn.attn_impl = "fused"
+    cos = torch.nn.functional.cosine_similarity(fused.flatten(1), plain.flatten(1)).min().item()
+    check(cos > 0.999, f"EVA02 tower cosine R1 + K1 vs plain rotary + einsum {cos:.6f}")
+    warm_s, stage_txt = _warm_times(torch, pred, reqs, timing_batches)
+    width = model.vision_cfg.width
+    rows = 2 * 8 * (model.vision_cfg.grid ** 2 + 1)     # both views of 8 pairs
+    swiglu = _swiglu_ms(torch, rows, width, iters)
+    del pred, model
+    torch.cuda.empty_cache()
+    return {"line": (f"{n_det}/8 detections, launches R1 {counts['rope']} K1 {counts['k1']} K2 "
+                     f"{counts['k2']}, rope_plain 0, tower cosine {cos:.6f}; warm B=8: "
+                     f"{warm_s * 1e3:.1f} ms/batch = {8 / warm_s:.2f} pairs/s; stages: "
+                     f"{stage_txt}; SwiGLU products at {rows} rows, w1 / w3 ms: "
+                     + ", ".join(f"K={k} {a:.4f} / {b:.4f}" for k, (a, b) in swiglu.items())),
+            "counts": {"rope": counts["rope"]}}
 
 
 # A REAL275-format tree for the eval phase: two box-shaped objects (the
@@ -3729,6 +3862,7 @@ def main(argv=None) -> int:
         "k1": phase_k1(torch, TIMED_LAUNCHES),
         "k1i8": phase_k1i8(torch, TIMED_LAUNCHES),
         "k5": phase_k5(torch, TIMED_LAUNCHES),
+        "rope": phase_r1(torch, TIMED_LAUNCHES),
         "k3": phase_k3(torch, TIMED_LAUNCHES),
         "k4": phase_k4(torch, TIMED_LAUNCHES),
         "k2": phase_k2(torch, TIMED_LAUNCHES),
@@ -3749,6 +3883,7 @@ def main(argv=None) -> int:
     counts.update(phase_serve_optin(torch, pred, reqs, TIMED_BATCHES)["counts"])
     counts.update(phase_serve_fp32(torch, pred, reqs)["counts"])
     phase_serve_small(torch)
+    counts.update(phase_serve_eva(torch, TIMED_BATCHES, TIMED_LAUNCHES)["counts"])
     layers = pred.model.vision_cfg.layers
     tmp = tempfile.mkdtemp(prefix="oryon_smoke_")
     try:
@@ -3799,6 +3934,7 @@ def main(argv=None) -> int:
         ("k3", "packed_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:90"),
         ("k4", "band_window_attention", "swin_attn.cu", "oryon_tpu/ops/pallas/swin_attn.py:204"),
         ("k5", "flash_mha_padded", "flash.cu", "oryon_tpu/ops/flash.py:84"),
+        ("rope", "rope_qk_", "rope.cu", None),   # R1: the JAX package has no EVA02 tower
     ]
     kernels = [{"name": name, "route": "cuda", "source": f"oryon_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": counts[key],

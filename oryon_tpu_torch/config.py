@@ -5,9 +5,10 @@ dataclasses, the same YAML loading and dotted-path ``a.b.c=value``
 overrides, so one ``configs/config.yaml`` and one set of overrides drive
 both packages (a test holds ``flatten(load_config(...))`` of the two equal).
 The serving path of the port reads ``model.size/quant/attn_impl``,
-``test.*``, ``dataset.img_size/batch_size``, ``pretrained.*``, ``eval.ckpt``
-and ``seed``; the training, mesh and precision fields are carried so that a
-config file of the JAX package loads unchanged.
+``model.image_encoder.vlm``, ``test.*``, ``dataset.img_size/batch_size``,
+``pretrained.*``, ``eval.ckpt`` and ``seed``; the training, mesh and
+precision fields are carried so that a config file of the JAX package loads
+unchanged.
 """
 from __future__ import annotations
 
@@ -74,6 +75,8 @@ class ImageEncoderConfig:
     img_size: Tuple[int, int] = (192, 192)
     out_channels: int = 32
     extra_upsampling: bool = True
+    # the vision-language towers (models/oryon.py): "clip" = CLIP
+    # ViT-L/14@336, "eva02" = EVA02-CLIP-L/14@336 (no int8: model.quant=none)
     vlm: str = "clip"
     use_decoder_guidance: bool = True
     use_cost_guidance: bool = True

@@ -117,14 +117,16 @@ def full_precision_matmuls() -> None:
 
 def model_from_config(cfg, generator: Optional[torch.Generator] = None):
     """The model of the config tree, on the host: ``cfg.model.size/quant/
-    attn_impl``; weights random from ``generator`` (default: seeded with
+    attn_impl`` and the towers of ``cfg.model.image_encoder.vlm`` (clip |
+    eva02); weights random from ``generator`` (default: seeded with
     ``cfg.seed`` if ``cfg.use_seed`` else 1), then the pretrained assets at
     size full (the report printed), then the checkpoint ``cfg.eval.ckpt``
     of the experiment.  Returns (model, epoch): the restored epoch, -1 when
     the experiment has no such checkpoint, None when ``eval.ckpt`` is empty."""
     size = cfg.model.size
     model = build_model(size, quant=resolve_quant(size, cfg.model.quant),
-                        attn_impl=resolve_attn_impl(size, cfg.model.attn_impl))
+                        attn_impl=resolve_attn_impl(size, cfg.model.attn_impl),
+                        vlm=cfg.model.image_encoder.vlm)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed if cfg.use_seed else 1)
     random_init_(model, generator)

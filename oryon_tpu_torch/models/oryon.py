@@ -6,6 +6,11 @@ NHWC layout; the compute dtype is bf16 for the full model, with LayerNorm
 and GroupNorm in f32 and the ``clip_conv`` and mask heads in f32, as there.
 The model is frozen at serving time: call it under ``torch.inference_mode``.
 
+The vision-language towers are CLIP ViT-L/14@336's (``vlm="clip"``) or
+EVA02-CLIP-L/14@336's (``vlm="eva02"``, ``eva02_towers``): the config key
+``model.image_encoder.vlm``.  Both give the fusion a 24 x 24 grid of 1024-wide
+patch tokens and 768-wide prompt embeddings.
+
 Training: the towers are frozen unless ``train_towers`` is set; frozen,
 they run under ``torch.no_grad()``, the counterpart of the JAX package's
 ``stop_gradient``, and keep no activations.  With ``train_towers`` the
@@ -15,13 +20,14 @@ take a gradient: the text tower is always frozen (the prompt caches).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from oryon_tpu_torch.models.clip import (ClipTextConfig, ClipTextTower,
-                                         ClipVisionConfig, ClipVisionTower)
+                                         ClipVisionConfig, vision_tower)
 from oryon_tpu_torch.models.decoder import DecoderConfig, StandardDecoder
 from oryon_tpu_torch.models.fusion import FusionConfig, ImageTextFusion
 from oryon_tpu_torch.models.swin import SwinConfig, SwinGuidance
@@ -62,7 +68,7 @@ class OryonModel(nn.Module):
         self.vision_cfg, self.text_cfg, self.swin_cfg = vision_cfg, text_cfg, swin_cfg
         self.swin_image_size, self.dtype = swin_image_size, dtype
         self.train_towers = train_towers
-        self.vlm_visual = ClipVisionTower(vision_cfg, dtype, remat=train_towers)
+        self.vlm_visual = vision_tower(vision_cfg, dtype, remat=train_towers)
         self.vlm_text = ClipTextTower(text_cfg, dtype)
         self.guidance = SwinGuidance(swin_cfg, dtype, remat=train_towers)
         self.fusion = ImageTextFusion(fusion_cfg, dtype)
@@ -107,25 +113,48 @@ class OryonModel(nn.Module):
                             mask_logits[B:])
 
 
+VLMS = ("clip", "eva02")
+
+
+def eva02_towers(vision: ClipVisionConfig, text: ClipTextConfig
+                 ) -> Tuple[ClipVisionConfig, ClipTextConfig]:
+    """The EVA02-CLIP towers of the same widths as the given CLIP ones
+    (``EVA02-CLIP-L-14-336.json`` of github.com/baaivision/EVA at full size):
+    EVA blocks (``clip.EvaVisionTower``) and a text tower with exact GELU."""
+    return (dataclasses.replace(vision, block="eva02"), dataclasses.replace(text, act="gelu"))
+
+
+def _towers(vision: ClipVisionConfig, text: ClipTextConfig, vlm: str):
+    if vlm not in VLMS:
+        raise ValueError(f"model.image_encoder.vlm {vlm!r} not in {VLMS}")
+    return eva02_towers(vision, text) if vlm == "eva02" else (vision, text)
+
+
 def full_oryon(dtype=torch.bfloat16, quant: str = "none",
-               attn_impl: str = "fused", train_towers: bool = False) -> OryonModel:
-    """Production configuration: ViT-L/14@336, Swin-B@384, 192² x 32-ch.
+               attn_impl: str = "fused", train_towers: bool = False,
+               vlm: str = "clip") -> OryonModel:
+    """Production configuration: ViT-L/14@336, Swin-B@384, 192² x 32-ch;
+    ``vlm="eva02"``: the EVA02-CLIP-L/14@336 towers at their published widths.
 
     ``quant="int8"`` runs the CLIP vision projections in int8; the Swin
     tower stays bf16, as in the JAX package (``SwinConfig.quant`` is there
     for a caller that builds its own ``OryonModel``).  ``attn_impl`` selects
     the vision tower's attention kernel (``cfg.model.attn_impl``)."""
-    return OryonModel(vision_cfg=ClipVisionConfig(quant=quant, attn_impl=attn_impl),
-                      dtype=dtype, train_towers=train_towers)
+    vision, text = _towers(ClipVisionConfig(quant=quant, attn_impl=attn_impl),
+                           ClipTextConfig(), vlm)
+    return OryonModel(vision_cfg=vision, text_cfg=text, dtype=dtype,
+                      train_towers=train_towers)
 
 
-def small_oryon(dtype=torch.float32, train_towers: bool = False) -> OryonModel:
+def small_oryon(dtype=torch.float32, train_towers: bool = False,
+                vlm: str = "clip") -> OryonModel:
     """Smoke-test configuration: real tokenizer vocab/context, small towers."""
+    vision, text = _towers(
+        ClipVisionConfig(image_size=112, patch_size=14, width=64, layers=2, heads=4),
+        ClipTextConfig(vocab_size=49408, context_length=77, width=64, layers=2, heads=4,
+                       embed_dim=64), vlm)
     return OryonModel(
-        vision_cfg=ClipVisionConfig(image_size=112, patch_size=14, width=64,
-                                    layers=2, heads=4),
-        text_cfg=ClipTextConfig(vocab_size=49408, context_length=77, width=64,
-                                layers=2, heads=4, embed_dim=64),
+        vision_cfg=vision, text_cfg=text,
         swin_cfg=SwinConfig(embed_dim=128, depths=(2, 2), heads=(4, 8), window=7),
         swin_image_size=128,
         fusion_cfg=FusionConfig(hidden_dim=128, text_guidance_dim=64,
@@ -137,13 +166,15 @@ def small_oryon(dtype=torch.float32, train_towers: bool = False) -> OryonModel:
         dtype=dtype, train_towers=train_towers)
 
 
-def tiny_oryon(dtype=torch.float32, train_towers: bool = False) -> OryonModel:
+def tiny_oryon(dtype=torch.float32, train_towers: bool = False,
+               vlm: str = "clip") -> OryonModel:
     """Test configuration: same topology, about 1000x fewer FLOPs."""
+    vision, text = _towers(
+        ClipVisionConfig(image_size=56, patch_size=14, width=64, layers=2, heads=4),
+        ClipTextConfig(vocab_size=600, context_length=16, width=32, layers=2, heads=4,
+                       embed_dim=48), vlm)
     return OryonModel(
-        vision_cfg=ClipVisionConfig(image_size=56, patch_size=14, width=64,
-                                    layers=2, heads=4),
-        text_cfg=ClipTextConfig(vocab_size=600, context_length=16, width=32,
-                                layers=2, heads=4, embed_dim=48),
+        vision_cfg=vision, text_cfg=text,
         swin_cfg=SwinConfig(embed_dim=128, depths=(2, 2), heads=(4, 8), window=7),
         swin_image_size=64,
         fusion_cfg=FusionConfig(hidden_dim=128, text_guidance_dim=48,
@@ -174,10 +205,14 @@ def resolve_attn_impl(size: str, attn_impl: str) -> str:
 
 
 def build_model(size: str = "full", dtype=None, quant: str = "none",
-                attn_impl: str = "fused", train_towers: bool = False) -> OryonModel:
-    """Model by size name; quant and attn_impl apply to the full model only."""
+                attn_impl: str = "fused", train_towers: bool = False,
+                vlm: str = "clip") -> OryonModel:
+    """Model by size name; quant and attn_impl apply to the full model only,
+    ``vlm`` ("clip" | "eva02", ``model.image_encoder.vlm``) to every size."""
     factory = MODEL_FACTORIES[size]
     kwargs = {}
+    if vlm != "clip":
+        kwargs["vlm"] = vlm
     if dtype is not None:
         kwargs["dtype"] = dtype
     if quant != "none":

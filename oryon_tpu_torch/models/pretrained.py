@@ -10,7 +10,9 @@ Counterpart of ``oryon_tpu/models/pretrained.py``.  The assets:
 
 Each asset is optional: a missing file leaves the randomly initialised
 sub-module as it is and is reported.  A sub-module loads whole or not at all
-(``strict=True``): a key or shape that does not fit raises.
+(``strict=True``): a key or shape that does not fit raises.  The EVA02-CLIP
+towers (``model.image_encoder.vlm=eva02``) have no configured checkpoint: no
+CLIP weights are loaded into them, and the report says so.
 """
 from __future__ import annotations
 
@@ -60,8 +62,11 @@ def load_pretrained_params(cfg, model) -> List[str]:
         merge("vlm_visual", C.convert_clip_visual(sd, layers=model.vision_cfg.layers))
         merge("vlm_text", C.convert_clip_text(sd, layers=model.text_cfg.layers))
 
+    eva = model.vision_cfg.block == "eva02"
     clip_path = cfg.pretrained.clip
-    if os.path.exists(clip_path):
+    if eva:
+        report.append("EVA02-CLIP towers: no EVA02 checkpoint is configured (random init)")
+    elif os.path.exists(clip_path):
         merge_clip(_load_any(clip_path))
         report.append(f"loaded CLIP from {clip_path}")
     else:
@@ -82,7 +87,7 @@ def load_pretrained_params(cfg, model) -> List[str]:
         report.append(f"loaded CATSeg fusion/decoder from {catseg_path}")
         # a finetuned CLIP inside the CATSeg checkpoint overrides the base one
         clip_sd = {k[len("clip."):]: v for k, v in sd.items() if k.startswith("clip.")}
-        if "visual.conv1.weight" in clip_sd:
+        if "visual.conv1.weight" in clip_sd and not eva:
             merge_clip(clip_sd)
             report.append("applied CATSeg-finetuned CLIP override")
     else:

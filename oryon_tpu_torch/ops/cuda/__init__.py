@@ -14,7 +14,8 @@ _COUNTERS = {"k1": ("mha_lanes", "launches"), "k1i8": ("mha_lanes", "launches_i8
              "k1bwd": ("mha_lanes", "launches_bwd"),
              "k2": ("match_kernel", "launches"), "k2fp32": ("match_kernel", "launches_fp32"),
              "k3": ("swin_attn", "launches_packed"),
-             "k4": ("swin_attn", "launches_band"), "k5": ("flash", "launches")}
+             "k4": ("swin_attn", "launches_band"), "k5": ("flash", "launches"),
+             "rope": ("rope", "launches")}
 
 
 def _module(name: str):
@@ -27,7 +28,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """{"k1", "k1i8", "k1bwd", "k2", "k2fp32", "k3", "k4", "k5"} -> launches
-    since the reset ("k1bwd" counts K1's backward, either mode; "k2" counts
-    K2's bf16 mode, "k2fp32" its fp32 mode)."""
+    """{"k1", "k1i8", "k1bwd", "k2", "k2fp32", "k3", "k4", "k5", "rope"} ->
+    launches since the reset ("k1bwd" counts K1's backward, either mode; "k2"
+    counts K2's bf16 mode, "k2fp32" its fp32 mode; "rope" the EVA02 tower's
+    rotary kernel R1)."""
     return {key: getattr(_module(module), attr) for key, (module, attr) in _COUNTERS.items()}

@@ -62,6 +62,8 @@ SIGNATURES = {
                                        _I, _I, _I, _I, _I, _P],
     "oryon_masked_argmin_wgmma_tf32x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                          _I, _I, _I, _I, _I, _P],
+    "oryon_rope_qk_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "oryon_rope_qk_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -136,7 +136,8 @@ def prepare(cfg, device: str = "cuda") -> types.SimpleNamespace:
     # default does not apply to the train step
     model = build_model(size, quant=resolve_quant(size, cfg.model.train_quant),
                         attn_impl=resolve_attn_impl(size, cfg.model.attn_impl),
-                        train_towers=cfg.model.train_towers)
+                        train_towers=cfg.model.train_towers,
+                        vlm=cfg.model.image_encoder.vlm)
     random_init_(model, torch.Generator().manual_seed(cfg.seed))
     on_device = bool(cfg.augs.rgb.device)
     train_ds, valid_ds = _datasets(cfg, model, device, on_device)

@@ -236,7 +236,7 @@ def test_bench_torch_prints_its_line_on_the_cpu(capsys, monkeypatch):
     assert set(line["min"]) == set(line["max"]) == set(variants)
     assert line["stage_ms"] is None and line["device"] == "cpu"
     assert line["launches"] == dict.fromkeys(("k1", "k1i8", "k1bwd", "k2", "k2fp32", "k3", "k4",
-                                              "k5"), 0)
+                                              "k5", "rope"), 0)
 
 
 def test_bench_torch_trace_writes_a_trace_on_the_cpu(capsys, monkeypatch, tmp_path):

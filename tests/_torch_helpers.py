@@ -2,10 +2,39 @@
 
 Inputs and weights are made with numpy from a seed and handed to both
 packages: the JAX package (reference, on the CPU) and oryon_tpu_torch.
+
+Importing this module gives torch one intra-op thread in the importing
+process.  The suite runs several pytest workers on one host; at torch's
+default of one OpenMP thread per core each, the workers' threads spin
+against each other and the port's tests take several times as long.
+Collection imports this module in every worker before any test runs.
+Processes a test starts (the ranks of ``_torch_dist.py``, subprocesses)
+keep torch's default, at which their bounds were set; a single-process
+train step held to their result runs under ``default_threads()``.  A test
+that needs another count sets it itself and restores it
+(``test_torch_train.py``).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import torch
+
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def default_threads():
+    """torch at ``DEFAULT_THREADS`` inside the block: the count of a process
+    the test starts, so that an SGD step's reductions add up as theirs do."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def flax_params(model, seed: int, *args, **kwargs):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import _torch_dist as td
+from _torch_helpers import default_threads
 from test_torch_parallel import _update_error
 
 
@@ -65,9 +66,10 @@ def runs(tmp_path_factory):
     ranks = td.Ranks(2, "cli_suite", args, tmp_path_factory.mktemp("cli"), timeout=240)
     with pytest.MonkeyPatch().context() as mp:
         mp.setattr(tokenizer, "ClipTokenizer", td.FakeTokenizer)
-        run_train_torch.main(_train_args(root, exp, "one", "training.n_epochs=1"))
-        run_train_torch.main(_train_args(root, exp, "one", "training.n_epochs=2",
-                                         "resume_ckpt=last"))
+        with default_threads():
+            run_train_torch.main(_train_args(root, exp, "one", "training.n_epochs=1"))
+            run_train_torch.main(_train_args(root, exp, "one", "training.n_epochs=2",
+                                             "resume_ckpt=last"))
         sw = run_test_torch.main(_test_args(root, exp, "one_test"))
     return exp, ranks.result(), sw
 

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 import _torch_dist as td
-from _torch_helpers import flax_params
+from _torch_helpers import default_threads, flax_params
 from test_torch_parallel import _jax_sgd_step, _mixed_validity, _update_error
 from test_torch_train import _models
 
@@ -187,7 +187,8 @@ def test_tp_checkpoint_is_the_unsharded_state(tp, tmp_path):
     model = td.tiny_model({k: torch.from_numpy(np.array(v)) for k, v in inputs["sd"].items()})
     state = create_train_state(model, lr=1e-3, optim_type="SGD", momentum=0.9,
                                weight_decay=0.0, total_steps=10)
-    state, _ = make_train_step()(state, td.train_batch(inputs["valid"], inputs["cv"]))
+    with default_threads():
+        state, _ = make_train_step()(state, td.train_batch(inputs["valid"], inputs["cv"]))
     ref = {k: v.numpy() for k, v in model.state_dict().items()}
     assert saved["step"] == 1 and saved["model"].keys() == ref.keys()
     for k, v in ref.items():
@@ -225,7 +226,8 @@ def test_dp_tp_train_step_with_trained_towers(tp):
     sd = {k: torch.from_numpy(np.array(v)) for k, v in inputs["sd"].items()}
     model = td.tiny_model(sd, train_towers=True)
     state = create_train_state(model, **td.SGD)
-    state, ref_m = make_train_step()(state, td.train_batch(inputs["valid"], inputs["cv"]))
+    with default_threads():
+        state, ref_m = make_train_step()(state, td.train_batch(inputs["valid"], inputs["cv"]))
     for k, v in ref_m.items():
         assert metrics[k] == pytest.approx(float(v), rel=1e-5, abs=1e-7), k
     before = {k: v.numpy() for k, v in sd.items()}

@@ -21,9 +21,10 @@ Phases, each printing one line with its result and its time:
                equal, the host time of one wrapper call, and the f32 mode
                at the small and tiny towers' path shapes ([4 / 16 / 64, 65,
                192], [16, 17, 192]) and the edges of its routes to 1e-5: the
-               one-block-a-head kernel and the streaming body it replaced
-               there, each timed with the launch queue kept full and by host
-               us a call, in turns, beside SDPA in f32 and the bound
+               body each shape is routed to (the one-block-a-head kernel at
+               L <= 128, the streaming body beyond), timed with the launch
+               queue kept full and by host us a call, beside SDPA in f32 and
+               the bound
   4. k1i8      the same with int8 logits (int8 wgmma behind a quantising
                pre-pass) at the padded ViT-L shape and the same edges; the
                pre-pass alone gives the plain version's absmax and int8 codes
@@ -49,16 +50,16 @@ Phases, each printing one line with its result and its time:
                no target excluded, duplicated targets; each pre-pass against
                torch.nonzero and its plain version (bf16 rows;
                split_tf32_plain's hi / lo rows, bitwise); pre-pass and main
-               kernel timed apart; the fp32 mode timed beside the CUDA-core
-               kernel it replaces, with its two bounds (3 x TF32, f32 CUDA
-               cores)
+               kernel timed apart; the fp32 mode timed with its bound
+               (3 x TF32)
   8. register  Kabsch, RANSAC, PointDSC and ICP recover a known rigid
                transform in full f32 (catches TF32 in the pose math); the
                poses are scored on the card with the port's rotation /
                translation errors, ADD and ADD-S
   9. serve     full_oryon(quant="int8") + PointDSC + ICP behind
                OryonPredictor at B=8 answers 12 requests; launch counters
-               show the main path went through K1 and K2
+               show the main path went through K1 and K2; one counted batch
+               of 8 each with ICP off and with RANSAC (K1 24, K2 1)
  10. serve_optin  the same predictor switched to (fused_i8qk, Swin band) and
                to (flash, Swin pallas): one counted batch of 8 each, through
                K1-i8 + K4 and K5 + K3; serve_fp32: a strict-parity run, the
@@ -141,21 +142,20 @@ Phases, each printing one line with its result and its time:
                (autograd through reference_mha) at [64, 577, 3072] (d qkv
                and d kmask, two launches bitwise equal; timed beside the
                plain version and SDPA's backward, with its bound and peak
-               memory; in turns with the mma.sync body, held against the
-               plain version too; its query-tile and key-tile kernels timed
-               alone), at [16, 640, 3072] with keys >= 577 masked and
-               qk_int8 off and on
+               memory; its query-tile and key-tile kernels timed alone), at
+               [16, 640, 3072] with keys >= 577 masked and qk_int8 off and on;
+               the mma.sync body the route gives at head dim 32 (d qkv and d
+               kmask, one launch counted, two launches bitwise equal)
  20. train_towers_small  steps of the small model (f32 towers) at B=32 with
                its towers trained: K1 4 and K1's backward 2 a step, each one
-               CUDA kernel by the profiler (the one-block-a-head kernels),
-               the loss finite, the tower and fusion/decoder gradients vs
-               the einsum tower's (cosine > 0.999), the step's device ms in
-               turns with the routes held to the former bodies; K1's f32
-               backward at the path shapes and edges against its plain
-               version (d qkv and d kmask, two launches bitwise equal,
-               kernels a call: a captured CUDA graph's kernel nodes), each
-               body timed in turns (queue full, host
-               us, through autograd) beside SDPA's f32 backward
+               CUDA kernel by the profiler (the one-block-a-head kernels,
+               none of the former bodies'), the loss finite, the tower and
+               fusion/decoder gradients vs the einsum tower's (cosine >
+               0.999), the step's device ms; K1's f32 backward at the path
+               shapes and edges against its plain version (d qkv and d
+               kmask, two launches bitwise equal, kernels a call: a captured
+               CUDA graph's kernel nodes), the routed body timed (queue
+               full, host us, through autograd) beside SDPA's f32 backward
  21. mesh1     one NCCL rank in this process: serving_mesh gives no mesh; the
                train step over make_mesh(-1, 1) (gradient all-reduce, global
                loss normaliser, global draws) equals the plain step bitwise
@@ -170,7 +170,6 @@ Phases, each printing one line with its result and its time:
  23. tp2       the same two ranks, mesh.model=2, int8: the sharded vision
                tower and featmaps against the unsharded model's (cosine above
                0.999), served masks; K1 at 8 heads a rank
- 24. bench     bench_torch.main with 2 rounds of 3 batches; its JSON line
 Every kernel phase holds the kernel against its plain PyTorch version on the
 same inputs and times kernel, plain version and, where one PyTorch call
 computes the same function, that call (a yardstick only: the port never calls
@@ -212,10 +211,8 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 ROT_TOL, TRANS_TOL = 1e-3, 1e-4   # registration: rad, m
 ADD_TOL = 1e-4                    # ADD and ADD-S of a recovered pose, m
-TIMED_LAUNCHES = 20               # per kernel timing run (K2's CUDA-core kernel: 3)
+TIMED_LAUNCHES = 20               # per kernel timing run
 TIMED_BATCHES = 3                 # warm B=8 batches timed for pairs/s
-STEP_TURN_ITERS = 2               # train_towers steps a turn, K1 bwd wgmma vs mma.sync body
-SMALL_STEP_TURN_ITERS = 10        # train_towers_small steps a turn, K1 f32 bodies
 DEVICE = "cuda"                   # the CPU rehearsal sets "cpu"
 
 
@@ -457,14 +454,12 @@ K1_OTHER_HD = ("hd=32", 2, 577, 32, 560, False)
 # 1 + 8^2 and 1 + 4^2 tokens, width 64, 4 heads of 16), [B, L, 3C] as their
 # paths run it: serve_small (2 pairs), a served batch of 8, a train_towers
 # step at B=32, a tiny batch of 8.  The one-block-a-head kernels serve them;
-# K1_F32_OLD are the bodies they replaced (the streaming forward, the
-# two-kernel backward), which serve longer L and wider heads and are timed
-# beside them.  K1_F32_EDGES: L of one key, of the longest a block holds,
-# one more (the streaming body) and head dim 32.
+# the bodies they replaced (the streaming forward, the two-kernel backward,
+# K1_F32_OLD_KERNELS) serve longer L.  K1_F32_EDGES: L of one key, of the
+# longest a block holds, one more (the streaming body) and head dim 32.
 K1_F32_PATHS = ((4, 65, 192), (16, 65, 192), (64, 65, 192), (16, 17, 192))
 K1_F32_EDGES = ((2, 1, 192), (2, 128, 192), (2, 129, 192), (2, 128, 384))
 K1_F32_HEADS, K1_F32_TOL = 4, 1e-5
-K1_F32_OLD = ("oryon_fused_mha_lanes_f32", "oryon_mha_lanes_bwd_f32")
 K1_F32_HEAD_KERNELS = ("mha_f32_head_kernel", "mha_bwd_f32_head_kernel")
 K1_F32_OLD_KERNELS = ("mha_lanes_f32_kernel", "dq_f32_kernel", "dkv_f32_kernel",
                       "colsum_kernel")
@@ -481,15 +476,14 @@ def _k1_case(torch, mha_lanes, g, B, L, hd, real, lead, qk_int8=False):
 
 
 def _f32_times_txt(times: dict) -> str:
-    """Per path shape: each body's device ms with the queue full and host us
-    a call (and, for the backward, ms through autograd and kernels a call
-    without and with d kmask), the plain version, SDPA, the bound."""
+    """Per path shape: the routed body's device ms with the queue full and
+    host us a call (and, for the backward, ms through autograd and kernels a
+    call without and with d kmask), the plain version, SDPA, the bound."""
     parts = []
     for shape, r in times.items():
-        body = "; ".join(
-            f"{b} {r['ms'][b]:.4f} ms / {r['host_us'][b]:.1f} us"
-            + (f" / autograd {r['grad_ms'][b]:.4f} ms / kernels {r['kernels'][b]}"
-               if "grad_ms" in r else "") for b in r["ms"])
+        body = (f"{r['ms']:.4f} ms / {r['host_us']:.1f} us"
+                + (f" / autograd {r['grad_ms']:.4f} ms / kernels {r['kernels']}"
+                   if "grad_ms" in r else ""))
         parts.append(f"{shape}: {body}; plain {r['plain_ms']:.3f} ms, SDPA "
                      f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return " | ".join(parts)
@@ -518,7 +512,7 @@ def phase_k1(torch, iters):
     f32_err, f32 = _k1_f32(torch, mha_lanes, g, iters)
     # the kernels line: the small model's train_towers step's shape
     step = f32[str(list(K1_F32_PATHS[2]))]
-    res["f32"] = dict(step, err=f32_err, ms=step["ms"]["head"])
+    res["f32"] = dict(step, err=f32_err)
     res["train"] = _k1_train(torch, mha_lanes, g, iters)
     res["tp"] = _k1_train(torch, mha_lanes, g, iters, K1_TP_SHAPE, K1_HEADS // 2,
                           "a tensor-parallel rank's shape")
@@ -539,7 +533,7 @@ def phase_k1(torch, iters):
                    f"{name} on the WMMA kernel {other_err:.3e}, two launches bitwise "
                    f"equal; host {res['host_us']:.1f} us per wrapper call; f32 mode at "
                    + ", ".join(str(list(s_)) for s_ in K1_F32_PATHS + K1_F32_EDGES)
-                   + f", each body: max abs err {f32_err:.2e} (tol {K1_F32_TOL}); "
+                   + f": max abs err {f32_err:.2e} (tol {K1_F32_TOL}); "
                    + _f32_times_txt(f32) + "; training "
                    f"shape {list(K1_TRAIN_SHAPE)}, no pad mask: max abs err "
                    f"{res['train']['err']:.3e}, {times_txt(res['train'])}; tensor-parallel "
@@ -586,38 +580,6 @@ def _k1_rank_shapes(torch, mha_lanes, g):
                                mha_lanes.reference_mha(qkv, kmask, K1_HEADS, scale),
                                f"K1 at {list(shape)}"))
     return err
-
-
-@contextlib.contextmanager
-def f32_route(mha_lanes, body: str):
-    """K1's f32 routes held to one body while the block runs: "head" leaves
-    the routes as they are (the one-block-a-head kernels at the small and
-    tiny shapes), "old" sends those shapes to K1_F32_OLD."""
-    fwd, bwd = mha_lanes.kernel_entry, mha_lanes.backward_entry
-    if body == "old":
-        def old_fwd(*a, **kw):
-            entry = fwd(*a, **kw)
-            return K1_F32_OLD[0] if entry == "oryon_fused_mha_lanes_f32_head" else entry
-
-        def old_bwd(*a, **kw):
-            entry = bwd(*a, **kw)
-            return K1_F32_OLD[1] if entry == mha_lanes.BWD_F32_HEAD else entry
-        mha_lanes.kernel_entry, mha_lanes.backward_entry = old_fwd, old_bwd
-    try:
-        yield
-    finally:
-        mha_lanes.kernel_entry, mha_lanes.backward_entry = fwd, bwd
-
-
-def bodies_in_turns(mha_lanes, bodies, timer, fn, iters) -> dict:
-    """{body: timer(fn, iters)} with K1's f32 routes held to each body in
-    turn, in the order of ``bodies`` and then reversed; each the mean of its
-    runs."""
-    runs = {b: [] for b in bodies}
-    for body in (*bodies, *reversed(bodies)):
-        with f32_route(mha_lanes, body):
-            runs[body].append(timer(fn, iters))
-    return {b: sum(v) / len(v) for b, v in runs.items()}
 
 
 def device_kernels(torch, fn, enough=bool, attempts: int = 3) -> dict:
@@ -688,14 +650,14 @@ def _f32_inputs(torch, g, shape, grad=False):
             torch.randn((*shape[:2], shape[2] // 3), generator=g, device=DEVICE))
 
 
-def _k1_f32(torch, mha_lanes, g, iters, bodies=("head", "old")):
-    """K1's f32 mode at the towers' path shapes and at K1_F32_EDGES: each
-    body against reference_mha within K1_F32_TOL (4 heads, 32 keys masked at
-    -1e9 where L > 64), one launch counted a call, two launches bitwise
-    equal.  Per path shape: the device ms with the launch queue kept full
-    and the host us of a wrapper call, each body in turns; SDPA in f32 with
-    the queue full; the plain version; the bound.  Returns (max error,
-    {shape: timings})."""
+def _k1_f32(torch, mha_lanes, g, iters):
+    """K1's f32 mode at the towers' path shapes and at K1_F32_EDGES: the body
+    the route gives against reference_mha within K1_F32_TOL (4 heads, 32
+    keys masked at -1e9 where L > 64), one launch counted a call, two
+    launches bitwise equal.  Per path shape: the device ms with the launch
+    queue kept full and the host us of a wrapper call; SDPA in f32 with the
+    queue full; the plain version; the bound.  Returns (max error, {shape:
+    timings})."""
     err = 0.0
     for shape in K1_F32_PATHS + K1_F32_EDGES:
         qkv, kmask, _ = _f32_inputs(torch, g, shape)
@@ -706,17 +668,15 @@ def _k1_f32(torch, mha_lanes, g, iters, bodies=("head", "old")):
         def kernel():
             return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
         ref = mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS, scale)
-        for body in bodies:
-            with f32_route(mha_lanes, body):
-                before = mha_lanes.launches
-                got = kernel()
-                check(mha_lanes.launches == before + 1 and got.dtype == torch.float32,
-                      f"K1 f32 {body} {list(shape)}: no launch counted or dtype {got.dtype}")
-                same_twice(torch, kernel, f"K1 f32 {body} {list(shape)}")
-            e = (got - ref).abs().max().item()
-            check(bool(torch.isfinite(got).all()) and e < K1_F32_TOL,
-                  f"K1 f32 {body} {list(shape)}: max |kernel - plain| = {e} >= {K1_F32_TOL}")
-            err = max(err, e)
+        before = mha_lanes.launches
+        got = kernel()
+        check(mha_lanes.launches == before + 1 and got.dtype == torch.float32,
+              f"K1 f32 {list(shape)}: no launch counted or dtype {got.dtype}")
+        same_twice(torch, kernel, f"K1 f32 {list(shape)}")
+        e = (got - ref).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and e < K1_F32_TOL,
+              f"K1 f32 {list(shape)}: max |kernel - plain| = {e} >= {K1_F32_TOL}")
+        err = max(err, e)
     res = {}
     for shape in K1_F32_PATHS:
         B, L, C3 = shape
@@ -725,8 +685,7 @@ def _k1_f32(torch, mha_lanes, g, iters, bodies=("head", "old")):
 
         def kernel():
             return mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
-        r = {"ms": bodies_in_turns(mha_lanes, bodies, queued_ms, kernel, iters),
-             "host_us": bodies_in_turns(mha_lanes, bodies, host_us, kernel, 200),
+        r = {"ms": queued_ms(kernel, iters), "host_us": host_us(kernel),
              "plain_ms": cuda_ms(lambda: mha_lanes.reference_mha(qkv, kmask, K1_F32_HEADS,
                                                                  scale), iters),
              "library_ms": queued_ms(lambda: sdpa_packed(
@@ -1223,33 +1182,21 @@ def phase_k2(torch, iters):
     out["blob_compact_ms"], out["blob_reduce_ms"] = _k2_phase_ms(torch, mk, src, tgt, blob,
                                                                  "bf16", iters)
     out["host_us"] = host_us(lambda: mk.masked_argmin(src, tgt, bad, "bf16"), 50)
-    # the fp32 mode, its phases, and the CUDA-core kernel it replaces, in turns
+    # the fp32 mode and its phases
     f32.update(timed(lambda: mk.masked_argmin(src, tgt, bad, "fp32"),
                      lambda: mk.masked_argmin_plain(src, tgt, bad, "fp32"), None, iters))
     f32["compact_ms"], f32["reduce_ms"] = _k2_phase_ms(torch, mk, src, tgt, bad, "fp32", iters)
-    o_min, o_arg = torch.empty_like(fp32["min"]), torch.empty_like(fp32["arg"])
-
-    def cuda_core():
-        mk.run_cuda_core(src, tgt, bad, o_min, o_arg)
-    cuda_core()
-    torch.cuda.synchronize()
-    check(bool(torch.equal(torch.isfinite(o_min), torch.isfinite(fp32["min"]))
-               and (o_min - fp32["min"]).abs().max().item() < 1e-5),
-          "K2: the CUDA-core kernel and the fp32 mode disagree")
-    f32["cuda_core_ms"] = (cuda_ms(cuda_core, 3) + cuda_ms(cuda_core, 3)) / 2
     f32["tc_again_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, bad, "fp32"), iters)
     f32["blob_ms"] = cuda_ms(lambda: mk.masked_argmin(src, tgt, blob, "fp32"), iters)
     f32["host_us"] = host_us(lambda: mk.masked_argmin(src, tgt, bad, "fp32"), 50)
     # one product of 32 per source and non-excluded target: at the bf16 rate
-    # for the bf16 mode; for the fp32 mode three TF32 products (the bound),
-    # and one f32 product on the CUDA cores beside it
+    # for the bf16 mode; for the fp32 mode three TF32 products
     kept = int((~bad).sum().item())
     kept_blob = int((~blob).sum().item())
-    io = nbytes(src, tgt, bad, o_min, o_arg)
+    io = nbytes(src, tgt, bad, fp32["min"], fp32["arg"])
     out.update(bound(io, {"bf16": 2 * K2_SRC * kept * 32}))
     blob_bound = bound(io, {"bf16": 2 * K2_SRC * kept_blob * 32})
     f32.update(bound(io, {"tf32": 3 * 2 * K2_SRC * kept * 32}))
-    f32_cores = bound(io, {"f32": 2 * K2_SRC * kept * 32})
     f32_blob = bound(io, {"tf32": 3 * 2 * K2_SRC * kept_blob * 32})
     out["fp32"] = f32
     out["line"] = (
@@ -1264,9 +1211,8 @@ def phase_k2(torch, iters):
         f"err {f32['err']:.2e}, argmins same {f32['same']:.6f}, {times_txt(f32)}, again "
         f"{f32['tc_again_ms']:.4f} ms; pre-pass {f32['compact_ms']:.4f} ms (hi/lo rows "
         f"bitwise split_tf32_plain's, map and counts torch.nonzero's), main kernel "
-        f"{f32['reduce_ms']:.4f} ms; the CUDA-core kernel it replaces "
-        f"{f32['cuda_core_ms']:.3f} ms; bounds 3 x TF32 {f32['bound_ms']:.4f} ms, f32 CUDA "
-        f"cores {f32_cores['bound_ms']:.4f} ms; 95% excluded (blob) {f32['blob_ms']:.4f} ms "
+        f"{f32['reduce_ms']:.4f} ms; bound 3 x TF32 {f32['bound_ms']:.4f} ms; 95% excluded "
+        f"(blob) {f32['blob_ms']:.4f} ms "
         f"(bound {f32_blob['bound_ms']:.4f}), argmins same {sparse['fp32']['same']:.6f}; host "
         f"{f32['host_us']:.1f} us per wrapper call | edges (S={S_e}, N={N_e}; all, all but "
         f"one, none excluded; duplicates to the lowest index) min err bf16 "
@@ -1509,10 +1455,22 @@ def phase_serve(torch, timing_batches, profile_dir=None):
     warm_s, stage_txt = _warm_times(torch, pred, batch8, timing_batches)
     if profile_dir:
         stage_txt += "; " + _profile(torch, lambda: pred.predict(batch8), profile_dir)
+
+    # the served variants a user can choose, one counted batch each
+    variants = []
+    for name, solver, icp in (("ICP off", "pointdsc", False), ("RANSAC", "ransac", None)):
+        other = OryonPredictor(model, pointdsc if solver == "pointdsc" else None, device=DEVICE,
+                               batch_size=8, img_size=(224, 224), depth_hw=(480, 640),
+                               solver=solver, icp_refine=icp)
+        results, got = _counted(torch, lambda: other.predict(batch8))
+        check(got["k1"] == layers and got["k2"] == 1,
+              f"{name}: K1 ran {got['k1']} times, K2 {got['k2']}; expected {layers} and 1")
+        variants.append(f"{name} {_check_results(results, batch8)}/8")
     return {"line": (f"build {build_s:.1f} s, first 12 requests {cold_s:.2f} s, "
                      f"{n_det}/12 detections, launches K1 {counts['k1']} K2 {counts['k2']}, "
                      f"tower cosine {cos:.6f}; warm B=8: {warm_s * 1e3:.1f} ms/batch = "
-                     f"{8 / warm_s:.2f} pairs/s; stages: {stage_txt}"),
+                     f"{8 / warm_s:.2f} pairs/s; stages: {stage_txt}; one batch of 8 "
+                     f"(K1 {layers}, K2 1) detections: {', '.join(variants)}"),
             "state": ({k: counts[k] for k in ("k1", "k2")}, pred, reqs)}
 
 
@@ -1804,30 +1762,6 @@ def phase_cli(torch, tmp, pd_dir, layers):
               f"keys of an output line: {sorted(ln)}")
     _check_results(lines, [{"prompt": "mug"}, {"prompt": "laptop"}])
     return {"line": f"{how}: {len(lines)} poses, launches K1 {counts['k1']} K2 {counts['k2']}"}
-
-
-@phase("bench")
-def phase_bench(torch, smi_line, layers):
-    import bench_torch
-    line, text = _printed(lambda: bench_torch.main(["--rounds", "2", "--iters", "3"]))
-    check(json.loads(text.strip().splitlines()[-1]) == line, "bench_torch's last line")
-    variants = ("value", "icp_off_variant", "bf16_parity_variant", "ransac_variant")
-    check("vs_baseline" not in line and all(k in line for k in (
-        "metric", "unit", "solver", "quant", "icp_refine", "min", "max", "stage_ms",
-        "launches", "device", *variants)), f"fields of the bench line: {sorted(line)}")
-    for v in variants:
-        check(0 < line["min"][v] <= line[v] <= line["max"][v],
-              f"{v}: min {line['min'][v]}, median {line[v]}, max {line['max'][v]}")
-    check(line["launches"]["k1"] == layers and line["launches"]["k2"] == 1,
-          f"bench launches {line['launches']}")
-    check(line["device"] == smi_line, f"bench device {line['device']!r} vs {smi_line!r}")
-    check(all(v > 0 for k, v in line["stage_ms"].items() if k != "outside"),
-          f"stage times {line['stage_ms']}")
-    return {"line": (f"2 x 3 batches a variant: headline {line['value']:.2f} pairs/s "
-                     f"({line['min']['value']:.2f}-{line['max']['value']:.2f}), ICP off "
-                     f"{line['icp_off_variant']:.2f}, bf16 {line['bf16_parity_variant']:.2f}, "
-                     f"RANSAC {line['ransac_variant']:.2f}; stages "
-                     + ", ".join(f"{k} {v:.1f}" for k, v in line["stage_ms"].items()) + " ms")}
 
 
 @phase("serve_fp32")
@@ -3095,10 +3029,8 @@ def _k1_bwd_train(torch, mha_lanes, iters):
     """K1's backward at the training shape (no key masked; kmask has no
     gradient in the tower): the kernel through autograd against the plain
     backward, two launches bitwise equal, d kmask as well; timed beside the
-    plain version and SDPA's backward, with its bound and peak memory.  The
-    mma.sync body (which no route takes at head dim 64) is held against the
-    plain version and timed in turns with the kernel; the query-tile and
-    key-tile kernels are timed alone (``split_ms``)."""
+    plain version and SDPA's backward, with its bound and peak memory; the
+    query-tile and key-tile kernels are timed alone (``split_ms``)."""
     B, L, C3 = K1_TRAIN_SHAPE
     g = torch.Generator(device=DEVICE).manual_seed(4)
     qkv = torch.randn((B, L, C3), generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
@@ -3127,15 +3059,12 @@ def _k1_bwd_train(torch, mha_lanes, iters):
     def body(entry, phases=mha_lanes.BWD_DQ | mha_lanes.BWD_DKV, stats=None):
         return lambda: mha_lanes.run_backward_entry(entry, qkv.detach(), kmask, dout, K1_HEADS,
                                                     scale, False, phases, stats)[0]
-    bodies = {"wgmma": body(mha_lanes.BWD_WGMMA), "mma_sync": body("oryon_mha_lanes_bwd_bf16")}
-    check(bool(torch.equal(bodies["wgmma"](), got)), "K1 backward: the entry moved d qkv")
-    res["mma_sync_err"] = _bwd_gate(torch, bodies["mma_sync"](), ref,
-                                    "K1 backward's mma.sync body")
+    check(bool(torch.equal(body(mha_lanes.BWD_WGMMA)(), got)),
+          "K1 backward: the entry moved d qkv")
     del ref, ref_m, dq, dm
     lib = sdpa_packed(torch, qkv, None, K1_HEADS)
     res.update(timed(kernel, plain,
                      lambda: torch.autograd.grad(lib, qkv, dout, retain_graph=True), iters))
-    res["body_ms"] = in_turns(bodies, iters)
     # the key-tile kernel alone reads the row statistics the query-tile kernel
     # wrote into one scratch, which both then keep using
     stats = mha_lanes.backward_stats(qkv, K1_HEADS)
@@ -3179,15 +3108,43 @@ def _k1_bwd_masked(torch, mha_lanes):
     return err
 
 
-def _k1_bwd_f32(torch, mha_lanes, iters, bodies=("head", "old")):
+def _k1_bwd_other_hd(torch, mha_lanes):
+    """K1's backward through autograd at K1_OTHER_HD, which the route sends
+    to the mma.sync body: d qkv and d kmask against the plain version, one
+    launch counted, two launches bitwise equal.  Returns the max abs error."""
+    name, B, L, hd, real, _ = K1_OTHER_HD
+    check(mha_lanes.backward_entry(hd) == "oryon_mha_lanes_bwd_bf16",
+          f"K1 backward {name}: routed to {mha_lanes.backward_entry(hd)}")
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    qkv = torch.randn((B, L, 3 * K1_HEADS * hd), generator=g,
+                      device=DEVICE).to(torch.bfloat16).requires_grad_()
+    kmask = torch.where(torch.arange(L, device=DEVICE) < real, 0.0, -1e9).requires_grad_()
+    dout = torch.randn((B, L, K1_HEADS * hd), generator=g, device=DEVICE).to(torch.bfloat16)
+    scale = hd ** -0.5
+    out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_HEADS, scale)
+
+    def grad():
+        return torch.autograd.grad(out, (qkv, kmask), dout, retain_graph=True)
+    before = mha_lanes.launches_bwd
+    got_q, got_m = grad()
+    check(mha_lanes.launches_bwd == before + 1, f"K1 backward {name}: no launch counted")
+    ref_q, ref_m = mha_lanes.reference_mha_backward(qkv, kmask, dout, K1_HEADS, scale, True)
+    err = max(_bwd_gate(torch, got_q, ref_q, f"K1 backward {name}"),
+              _bwd_gate(torch, got_m, ref_m, f"K1 backward's d kmask {name}"))
+    same_twice(torch, lambda: torch.cat([t.float().flatten() for t in grad()]),
+               f"K1 backward {name}")
+    return err
+
+
+def _k1_bwd_f32(torch, mha_lanes, iters):
     """K1's backward in f32 at the towers' path shapes and at K1_F32_EDGES,
-    each body: d qkv through autograd and d kmask against the plain version
-    within K1_F32_TOL (32 keys masked where L > 64), d qkv the same with and
-    without d kmask, two launches bitwise equal (d kmask too), the kernels a
-    call without and with d kmask (``graph_kernels``).  Per path shape, each
-    body in turns: the device ms of a call with the launch queue kept full,
-    its host us, the ms of a gradient through autograd; SDPA's f32 backward
-    with the queue full, the plain version, the bound.  Returns (max error,
+    the body the route gives: d qkv through autograd and d kmask against the
+    plain version within K1_F32_TOL (32 keys masked where L > 64), d qkv the
+    same with and without d kmask, two launches bitwise equal (d kmask too),
+    the kernels a call without and with d kmask (``graph_kernels``).  Per
+    path shape: the device ms of a call with the launch queue kept full, its
+    host us, the ms of a gradient through autograd; SDPA's f32 backward with
+    the queue full, the plain version, the bound.  Returns (max error,
     {shape: timings})."""
     g = torch.Generator(device=DEVICE).manual_seed(6)
     err, res = 0.0, {}
@@ -3197,8 +3154,7 @@ def _k1_bwd_f32(torch, mha_lanes, iters, bodies=("head", "old")):
         if L > 64:
             kmask[-32:] = -1e9
         scale = (C3 // 3 // K1_F32_HEADS) ** -0.5
-        with f32_route(mha_lanes, bodies[0]):
-            out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
+        out = mha_lanes.fused_mha_lanes_qkv(qkv, kmask, K1_F32_HEADS, scale)
         ref, ref_m = mha_lanes.reference_mha_backward(qkv, kmask, dout, K1_F32_HEADS, scale,
                                                       True)
 
@@ -3208,27 +3164,21 @@ def _k1_bwd_f32(torch, mha_lanes, iters, bodies=("head", "old")):
 
         def grad():
             return torch.autograd.grad(out, qkv, dout, retain_graph=True)[0]
-        kernels = {}
-        for body in bodies:
-            what = f"K1 f32 backward, {body}, {list(shape)}"
-            with f32_route(mha_lanes, body):
-                before = mha_lanes.launches_bwd
-                got = grad()
-                check(mha_lanes.launches_bwd == before + 1, f"{what}: no launch counted")
-                dq, dm = call(True)
-                check(bool(torch.equal(dq, got)), f"{what}: d qkv moved with d kmask")
-                same_twice(torch, lambda: torch.cat([t.flatten() for t in call(True)]), what)
-                kernels[body] = tuple(graph_kernels(torch, lambda: call(w))
-                                      for w in (False, True))
-            err = max(err, _bwd_gate(torch, got, ref, what, f32=True),
-                      _bwd_gate(torch, dm, ref_m, f"{what}: d kmask", f32=True))
+        what = f"K1 f32 backward, {list(shape)}"
+        before = mha_lanes.launches_bwd
+        got = grad()
+        check(mha_lanes.launches_bwd == before + 1, f"{what}: no launch counted")
+        dq, dm = call(True)
+        check(bool(torch.equal(dq, got)), f"{what}: d qkv moved with d kmask")
+        same_twice(torch, lambda: torch.cat([t.flatten() for t in call(True)]), what)
+        kernels = tuple(graph_kernels(torch, lambda: call(w)) for w in (False, True))
+        err = max(err, _bwd_gate(torch, got, ref, what, f32=True),
+                  _bwd_gate(torch, dm, ref_m, f"{what}: d kmask", f32=True))
         if shape not in K1_F32_PATHS:
             continue
         lib = sdpa_packed(torch, qkv, None, K1_F32_HEADS)
-        r = {"ms": bodies_in_turns(mha_lanes, bodies, queued_ms, call, iters),
-             "host_us": bodies_in_turns(mha_lanes, bodies, host_us, call, 200),
-             "grad_ms": bodies_in_turns(mha_lanes, bodies, cuda_ms, grad, iters),
-             "kernels": kernels,
+        r = {"ms": queued_ms(call, iters), "host_us": host_us(call),
+             "grad_ms": cuda_ms(grad, iters), "kernels": kernels,
              "plain_ms": cuda_ms(lambda: mha_lanes.reference_mha_backward(
                  qkv, kmask, dout, K1_F32_HEADS, scale, False), iters),
              "library_ms": queued_ms(
@@ -3263,28 +3213,6 @@ def phase_train_towers(torch, iters, layers):
     grads = {t: [p.grad for n, p in model.named_parameters() if n.startswith(t + ".")]
              for t in ("vlm_visual", "guidance", "vlm_text")}
     check(all(g is None for g in grads["vlm_text"]), "a gradient reached the text tower")
-
-    # the step in turns with the mma.sync body in the wgmma body's place
-    route, swapped = mha_lanes.backward_entry, [0]
-
-    def mma_sync_route(*a, **kw):
-        entry = route(*a, **kw)
-        if entry != mha_lanes.BWD_WGMMA:
-            return entry
-        swapped[0] += 1
-        return "oryon_mha_lanes_bwd_bf16"
-
-    def run_step():
-        step(state, batch, torch.Generator(device=DEVICE).manual_seed(1))
-
-    def mma_sync_step():
-        mha_lanes.backward_entry = mma_sync_route
-        try:
-            run_step()
-        finally:
-            mha_lanes.backward_entry = route
-    step_body_ms = in_turns({"wgmma": run_step, "mma_sync": mma_sync_step}, STEP_TURN_ITERS)
-    check(swapped[0] > 0, "train_towers: the step did not take the mma.sync body")
     for t in ("vlm_visual", "guidance"):
         check(any(g is not None and bool(g.abs().max() > 0) for g in grads[t]),
               f"no gradient reached {t}")
@@ -3318,12 +3246,10 @@ def phase_train_towers(torch, iters, layers):
 
     res = _k1_bwd_train(torch, mha_lanes, iters)
     masked_err = _k1_bwd_masked(torch, mha_lanes)
-    res.update(peak_step_gib=peak_gib, step_ms=step_ms, launches=step_counts[0]["k1bwd"],
-               step_body_ms=step_body_ms)
+    other_err = _k1_bwd_other_hd(torch, mha_lanes)
+    res.update(peak_step_gib=peak_gib, step_ms=step_ms, launches=step_counts[0]["k1bwd"])
     res["line"] = (f"full width, B={TRAIN_BATCH}, Swin einsum, K1 fused: 2 steps "
-                   f"({', '.join(f'{v:.0f}' for v in step_ms)} ms host; in turns, device "
-                   f"ms a step: " + ", ".join(f"{k} {v:.2f}" for k, v in step_body_ms.items())
-                   + f") with launches "
+                   f"({', '.join(f'{v:.0f}' for v in step_ms)} ms host) with launches "
                    f"K1 {step_counts[0]['k1']} a step ({layers} + {layers} recomputed) and "
                    f"K1's backward {step_counts[0]['k1bwd']}, gradients in vlm_visual and "
                    f"guidance, none in vlm_text; peak {peak_gib:.2f} GiB allocated; "
@@ -3334,14 +3260,13 @@ def phase_train_towers(torch, iters, layers):
                    f"{KERNEL_TOL}), backward kernel vs plain max abs err {res['err']:.3e}, d "
                    f"kmask {res['mask_err']:.3e} (tol {K1_BWD_TOL} of the largest value, "
                    f"cosine >= {K1_BWD_COS}), two launches bitwise equal, {times_txt(res)}, "
-                   f"kernel / library {res['ms'] / res['library_ms']:.2f}; in turns: "
-                   + ", ".join(f"{k} {v:.4f} ms" for k, v in res["body_ms"].items())
-                   + f" (mma.sync max abs err {res['mma_sync_err']:.3e}); alone: "
+                   f"kernel / library {res['ms'] / res['library_ms']:.2f}; alone: "
                    + ", ".join(f"{k} {v:.4f} ms" for k, v in res["split_ms"].items())
                    + f"; peak "
                    f"{res['peak_gib']:.3f} GiB (plain {res['plain_peak_gib']:.2f}); "
                    f"{list(K1_BWD_MASKED)}, keys >= {K1_SHAPE[1]} masked, qk_int8 off and on "
-                   f"(the same gradient bitwise): max abs err {masked_err:.3e} (f32: "
+                   f"(the same gradient bitwise): max abs err {masked_err:.3e}; "
+                   f"{K1_OTHER_HD[0]} on the mma.sync body: max abs err {other_err:.3e} (f32: "
                    f"train_towers_small)")
     return res
 
@@ -3352,9 +3277,8 @@ def phase_train_towers_small(torch, iters):
     at B=32 through train.make_train_step: K1's f32 mode and its backward on
     the one-block-a-head kernels, each one CUDA kernel a launch (the
     profiler's count); the loss finite; the tower and fusion/decoder
-    gradients against the einsum tower's; the step's device ms in turns with
-    the routes held to the bodies those kernels replaced.  Then K1's f32
-    backward at the path shapes (``_k1_bwd_f32``)."""
+    gradients against the einsum tower's; the step's device ms.  Then K1's
+    f32 backward at the path shapes (``_k1_bwd_f32``)."""
     from oryon_tpu_torch.models.layers import random_init_
     from oryon_tpu_torch.models.oryon import small_oryon
     from oryon_tpu_torch.ops.cuda import mha_lanes
@@ -3400,8 +3324,7 @@ def phase_train_towers_small(torch, iters):
     check(min(cos.values()) > GRAD_COS_BOUND and rel < GRAD_LOSS_TOL,
           f"K1 f32 vs einsum tower: gradient cosines {cos}, loss {loss_k} vs {loss_p}")
     model.zero_grad(set_to_none=True)
-    step_ms = bodies_in_turns(mha_lanes, ("head", "old"), cuda_ms, run_step,
-                              SMALL_STEP_TURN_ITERS)
+    step_ms = cuda_ms(run_step, iters)
     del model, state, batch
     torch.cuda.empty_cache()
     err, times = _k1_bwd_f32(torch, mha_lanes, iters)
@@ -3412,14 +3335,13 @@ def phase_train_towers_small(torch, iters):
         f"kernel ({seen}; the former bodies' kernels 0); loss {float(m['loss/total']):.5f}; "
         f"gradient vs the einsum tower: cosine "
         + ", ".join(f"{k} {v:.7f}" for k, v in cos.items())
-        + f" (bound {GRAD_COS_BOUND}), loss rel {rel:.2e}; in turns, device ms a step: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+        + f" (bound {GRAD_COS_BOUND}), loss rel {rel:.2e}; device {step_ms:.3f} ms a step"
         + f"; K1's f32 backward at " + ", ".join(str(list(s_)) for s_ in
                                                  K1_F32_PATHS + K1_F32_EDGES)
-        + f", each body: max abs err {err:.2e} (tol {K1_F32_TOL} of the largest value); "
+        + f": max abs err {err:.2e} (tol {K1_F32_TOL} of the largest value); "
         + _f32_times_txt(times)),
         "counts": counts, "step_ms": step_ms,
-        "k1bwdf32": dict(times[shape], err=err, ms=times[shape]["ms"]["head"])}
+        "k1bwdf32": dict(times[shape], err=err)}
 
 
 # ---- several GPUs: mesh1 (NCCL, one rank), dp2 and tp2 (gloo, two ranks on
@@ -3917,7 +3839,6 @@ def main(argv=None) -> int:
         phase_tp2(torch, ranks, layers, dev["smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_bench(torch, dev["smi"], layers)
     table = [   # key, wrapper, source, TPU kernel it replaces
         ("k1", "fused_mha_lanes_qkv", "mha_lanes.cu", "oryon_tpu/ops/pallas/mha_lanes.py:121"),
         ("k1i8", "fused_mha_lanes_qkv(qk_int8=True)", "mha_lanes.cu",

@@ -57,7 +57,6 @@ SIGNATURES = {
                                                  _I, _I, _F, _I, _P],
     "oryon_band_window_attention_wgmma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                                _I, _F, _I, _P],
-    "oryon_masked_argmin_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "oryon_masked_argmin_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _P],
     "oryon_masked_argmin_wgmma_tf32x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

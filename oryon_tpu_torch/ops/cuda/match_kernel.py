@@ -33,9 +33,7 @@ launches.  Which kernel serves which mode (``kernel_entry``):
   hold it.
 
 A failed build or launch raises; no route falls back to another kernel or to
-the plain version.  The first body of the fp32 mode, a CUDA-core kernel
-(entry ``oryon_masked_argmin_f32``), is on no route: ``run_cuda_core`` calls
-it so that ``chip_smoke.py`` can time it beside the tensor-core kernel.
+the plain version.
 """
 from __future__ import annotations
 
@@ -171,20 +169,6 @@ def run_phases(src: torch.Tensor, tgt: torch.Tensor, tgt_bad: torch.Tensor,
     err = _call(_lib.library(), kernel_entry(precision), src, tgt, tgt_bad, scratch,
                 out_min, out_arg, phases, torch.cuda.current_stream(src.device).cuda_stream)
     _lib.check(err, f"masked_argmin {precision} phases {phases}")
-
-
-def run_cuda_core(src: torch.Tensor, tgt: torch.Tensor, tgt_bad: torch.Tensor,
-                  out_min: torch.Tensor, out_arg: torch.Tensor) -> None:
-    """The first body of the fp32 mode, the CUDA-core kernel (entry
-    ``oryon_masked_argmin_f32``), which no route reaches any more: for timing
-    it beside the tensor-core kernel.  Counts no launch and checks no
-    argument."""
-    P, S, D = src.shape
-    err = _lib.library().oryon_masked_argmin_f32(
-        src.data_ptr(), tgt.data_ptr(), tgt_bad.data_ptr(), out_min.data_ptr(),
-        out_arg.data_ptr(), P, S, tgt.shape[1], D,
-        torch.cuda.current_stream(src.device).cuda_stream)
-    _lib.check(err, "masked_argmin CUDA-core kernel")
 
 
 def _call(lib, entry: str, src, tgt, tgt_bad, scratch, out_min, out_arg, phases: int,

@@ -346,3 +346,30 @@ def test_every_entry_point_is_defined_once_in_the_sources():
     assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in swin
     hopper = (Path(_lib.CSRC) / "hopper.cuh").read_text()
     assert "cp.async.bulk.tensor.3d" in hopper and "cp.async.bulk.tensor.4d" in hopper
+
+
+def test_every_entry_point_is_on_a_route():
+    """The library declares exactly the entries that the route functions
+    return over the inputs they accept: no kernel stays in it that no
+    wrapper can reach.  And launch_counts() keeps one counter a kernel."""
+    from oryon_tpu_torch.ops import cuda
+    from oryon_tpu_torch.ops.cuda import _lib, flash, match_kernel, mha_lanes, rope, swin_attn
+
+    routed = set()
+    for hd in (16, 32, 64, 128):
+        for L in (65, mha_lanes.F32_HEAD_MAX_L, mha_lanes.F32_HEAD_MAX_L + 1):
+            for i8 in (False, True):
+                routed.add(mha_lanes.kernel_entry(hd, i8, torch.bfloat16, L))
+            routed.add(mha_lanes.kernel_entry(hd, False, torch.float32, L))
+            for dtype in (torch.bfloat16, torch.float32):
+                routed.add(mha_lanes.backward_entry(hd, dtype, L))
+        routed.add(flash.kernel_entry(hd))
+    for hd in (16, 32, 64):
+        for N in (16, 49, swin_attn.TILE):
+            for band in (False, True):
+                routed.add(swin_attn.kernel_entry(hd, N, band))
+    routed |= {match_kernel.kernel_entry(p) for p in match_kernel.PRECISIONS}
+    routed |= set(rope.ENTRIES.values())
+    assert routed == set(_lib.SIGNATURES)
+    assert set(cuda.launch_counts()) == {"k1", "k1i8", "k1bwd", "k2", "k2fp32", "k3", "k4",
+                                         "k5", "rope"}

@@ -1,6 +1,5 @@
-"""The port's serving CLI (``run_infer_torch.py``), ``load_view`` and the
-throughput bench (``bench_torch.py``) on the CPU, at the small / tiny model
-sizes, from files written to ``tmp_path``.
+"""The port's serving CLI (``run_infer_torch.py``) and ``load_view`` on the
+CPU, at the small / tiny model sizes, from files written to ``tmp_path``.
 """
 import json
 import os
@@ -207,55 +206,3 @@ def test_load_view_forms_match_jax_package(tmp_path, depth, camera, mask):
     np.testing.assert_array_equal(got["camera"], CAM)
     if mask:
         np.testing.assert_array_equal(got["mask"], want_mask)
-
-
-def test_bench_torch_prints_its_line_on_the_cpu(capsys, monkeypatch):
-    """``bench_torch.main`` at the tiny model, one round of one batch: the
-    last line parses, has ``bench.py``'s fields and the port's, quotes no
-    baseline, and on the CPU counts no kernel launch and no device time.
-    ICP is cut to 64 points x 2 trips here to keep the test short."""
-    import bench_torch
-    from oryon_tpu_torch import config as tcfg
-
-    real = tcfg.TestConfig
-    monkeypatch.setattr(tcfg, "TestConfig", lambda: real(icp_points=64, icp_iters=2))
-    line = bench_torch.main(["--device", "cpu", "--size", "tiny", "--rounds", "1",
-                             "--iters", "1"])
-    last = capsys.readouterr().out.strip().splitlines()[-1]
-    assert json.loads(last) == line
-    variants = ("value", "icp_off_variant", "bf16_parity_variant", "ransac_variant")
-    assert set(line) == {"metric", "unit", "solver", "quant", "icp_refine", "min", "max",
-                         "stage_ms", "launches", "device", "rounds", "iters", "size",
-                         *variants}
-    assert "vs_baseline" not in last
-    assert (line["metric"], line["unit"], line["solver"]) == (
-        "e2e_image_pairs_per_sec", "pairs/s", "pointdsc")
-    assert line["icp_refine"] is True and line["quant"] == "none" and line["size"] == "tiny"
-    for v in variants:
-        assert 0 < line["min"][v] <= line[v] <= line["max"][v]
-    assert set(line["min"]) == set(line["max"]) == set(variants)
-    assert line["stage_ms"] is None and line["device"] == "cpu"
-    assert line["launches"] == dict.fromkeys(("k1", "k1i8", "k1bwd", "k2", "k2fp32", "k3", "k4",
-                                              "k5", "rope"), 0)
-
-
-def test_bench_torch_trace_writes_a_trace_on_the_cpu(capsys, monkeypatch, tmp_path):
-    """``--trace=DIR``: after the timed rounds, a profiled window of warm
-    headline batches (one here) leaves the Chrome trace and the operation
-    table in DIR; the last line is still the bench's JSON line."""
-    import bench_torch
-    from oryon_tpu_torch import config as tcfg
-
-    real = tcfg.TestConfig
-    monkeypatch.setattr(tcfg, "TestConfig", lambda: real(icp_points=64, icp_iters=2))
-    monkeypatch.setattr(bench_torch, "TRACE_BATCHES", 1)
-    out = str(tmp_path / "trace")
-    line = bench_torch.main(["--device", "cpu", "--size", "tiny", "--rounds", "1",
-                             "--iters", "1", f"--trace={out}"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert json.loads(lines[-1]) == line and lines[-2].startswith("trace: 1 warm headline")
-    assert sorted(os.listdir(out)) == ["bench_trace.json", "bench_trace.txt"]
-    with open(os.path.join(out, "bench_trace.json")) as f:
-        assert json.load(f)["traceEvents"]
-    with open(os.path.join(out, "bench_trace.txt")) as f:
-        assert "Self CPU" in f.read()

@@ -193,8 +193,7 @@ def _imports_and_joins(path):
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "oryon_tpu_torch", "**", "*.py"),
                               recursive=True)) + [
     os.path.join(ROOT, name) for name in ("chip_smoke.py", "run_infer_torch.py",
-                                          "bench_torch.py", "run_test_torch.py",
-                                          "run_train_torch.py")]
+                                          "run_test_torch.py", "run_train_torch.py")]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))
